@@ -1,4 +1,4 @@
-"""Core layers in PyTorch: norms, GLU MLPs, embeddings, RoPE, init.
+"""Core layers in PyTorch: norms, GLU MLPs, embeddings, RoPE, init, loss.
 
 Parameters live in :class:`ParamTree` modules whose attribute names are the
 JAX package's pytree keys, so ``tree["attn"]["wq"]`` reads the same in both
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Tree = Dict[str, Union[torch.Tensor, "Tree"]]
 
@@ -133,6 +134,63 @@ def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
     if tie:
         return torch.einsum("...d,vd->...v", x, p["tok"])
     return torch.einsum("...d,dv->...v", x, p["head"])
+
+
+# ----------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------
+def _lse_and_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """fp32 logsumexp over the vocab and the logit of each label (labels
+    < 0 pick class 0; the caller masks them)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    return lse, gold
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean CE; fp32 logsumexp; labels < 0 are masked."""
+    lse, gold = _lse_and_gold(logits, labels)
+    ce = lse - gold
+    if z_loss:
+        ce = ce + z_loss * torch.square(lse)
+    mask = (labels >= 0).float()
+    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _chunk_loss(embed_params, xb: torch.Tensor, lb: torch.Tensor,
+                tie: bool):
+    lse, gold = _lse_and_gold(unembed(embed_params, xb, tie), lb)
+    mask = (lb >= 0).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def fused_unembed_cross_entropy(embed_params, x: torch.Tensor,
+                                labels: torch.Tensor, tie: bool,
+                                chunk: int = 2048) -> torch.Tensor:
+    """LM head + CE over sequence chunks: the (tokens x vocab) fp32 logits
+    never exist whole.  Under autograd each chunk is checkpointed, so its
+    logits are recomputed in the backward instead of saved."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    pad = -s % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s + pad, chunk):
+        args = (embed_params, x[:, c:c + chunk], labels[:, c:c + chunk], tie)
+        if remat:
+            t, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+        else:
+            t, n = _chunk_loss(*args)
+        tot = tot + t
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ----------------------------------------------------------------------

@@ -1,19 +1,24 @@
-"""Decoder LM for the serving slice: attention mixers with dense FFNs.
+"""Decoder LM: attention mixers with dense FFNs.
 
 The model is ``n_repeats`` copies of a ``block`` of layers, with the layer
 parameters stacked on a leading axis as in the JAX package (which scans
 over them); here a Python loop over the repeats takes the scan's place.
-Mamba and MoE layers raise ``NotImplementedError`` until their slices.
+The full-sequence forward and loss (prefill, training) and the one-token
+decode step are ported.  Mamba and MoE layers raise
+``NotImplementedError`` until their slices.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .attention import Attention, decode_attention_block, init_kv_cache
-from .layers import (MLP, Embedding, ParamTree, embed_tokens, mlp_apply,
-                     ones_init, rmsnorm, unembed)
+from .attention import (Attention, attention_block, decode_attention_block,
+                        init_kv_cache)
+from .layers import (MLP, Embedding, ParamTree, embed_tokens,
+                     fused_unembed_cross_entropy, mlp_apply, ones_init,
+                     rmsnorm, softmax_cross_entropy, unembed)
 
 
 def _check_spec(spec) -> None:
@@ -81,6 +86,90 @@ class TransformerLM(ParamTree):
 
 def init_model(cfg, generator: torch.Generator, device) -> TransformerLM:
     return TransformerLM(cfg, device=device, generator=generator)
+
+
+# ----------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------
+def _apply_layer(p, spec, x, positions, cfg, aux):
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    x = x + attention_block(p["attn"], h, positions, cfg=cfg)
+    if spec.ffn != "none":
+        h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+    return x, aux
+
+
+def _apply_superblock(p, x, positions, cfg, aux):
+    for i, spec in enumerate(cfg.block):
+        x, aux = _apply_layer(p[f"layer{i}"], spec, x, positions, cfg, aux)
+    return x, aux
+
+
+def _backbone(params: TransformerLM, tokens: torch.Tensor, cfg, *,
+              extra_embeds: Optional[torch.Tensor] = None,
+              remat_policy=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Everything up to (and including) the final norm: (hidden, aux).
+    With ``cfg.remat == "block"`` and autograd on, each repeat of the block
+    is checkpointed (the reference's ``jax.checkpoint`` of the scan body)."""
+    if remat_policy is not None:
+        raise NotImplementedError(
+            "TENSILE remat policies arrive with the training slice")
+    x = embed_tokens(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    b, seq = x.shape[:2]
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device=x.device).expand(b, seq)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(cfg.prefix):
+        x, aux = _apply_layer(params[f"prefix{i}"], spec, x, positions, cfg,
+                              aux)
+    blocks = params["blocks"]
+
+    def body(x, aux, r):
+        return _apply_superblock(blocks.at(r), x, positions, cfg, aux)
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for r in range(cfg.n_repeats):
+        if remat:
+            x, aux = checkpoint(body, x, aux, r, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, r)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params: TransformerLM, tokens: torch.Tensor, cfg, *,
+            extra_embeds: Optional[torch.Tensor] = None,
+            remat_policy=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B,S_txt) int; extra_embeds: (B,S_extra,d) frontend
+    embeddings prepended.  Returns (logits (B,S,V), aux_loss)."""
+    x, aux = _backbone(params, tokens, cfg, extra_embeds=extra_embeds,
+                       remat_policy=remat_policy)
+    return unembed(params["embed"], x, cfg.tie_embeddings), aux
+
+
+def loss_fn(params: TransformerLM, batch: Dict[str, torch.Tensor], cfg,
+            remat_policy=None) -> torch.Tensor:
+    """Token-mean CE of ``batch["labels"]`` (+ 0.01 x aux); with
+    ``cfg.loss_chunk`` the LM head and CE run fused over sequence chunks."""
+    labels = batch["labels"]
+    if cfg.loss_chunk:
+        x, aux = _backbone(params, batch["tokens"], cfg,
+                           extra_embeds=batch.get("extra_embeds"),
+                           remat_policy=remat_policy)
+        if x.shape[1] != labels.shape[1]:
+            x = x[:, -labels.shape[1]:]
+        ce = fused_unembed_cross_entropy(params["embed"], x, labels,
+                                         cfg.tie_embeddings,
+                                         chunk=cfg.loss_chunk)
+        return ce + 0.01 * aux
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          extra_embeds=batch.get("extra_embeds"),
+                          remat_policy=remat_policy)
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]      # drop frontend positions
+    return softmax_cross_entropy(logits, labels) + 0.01 * aux
 
 
 # ----------------------------------------------------------------------
