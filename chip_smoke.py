@@ -20,6 +20,19 @@ from seed 0):
    path; the reduced fp32 forward card-vs-CPU; 4 train steps (B 4,
    S 1024) through ``build_train_step``, whose loss must fall; the reduced
    fp32 train step card-vs-CPU; and the kernel's times.
+3. TENSILE, the paper's own loop: the quantize/dequantize kernels
+   bit-exact against their plain versions (``check_quant``); the
+   quickstart MLP captured, planned and executed, its executor peak and
+   decision trace equal to the simulator's (``tensile_mlp``); then the
+   full-width train step (B 4, S 1024, no block remat) captured on fake
+   tensors, its operator latencies measured by one unscheduled run, planned
+   with the compressed pass first under the tightest budget that plan
+   reaches, and executed for 3 iterations with swaps to pinned host memory
+   on a copy stream (``tensile_train``).  The same budget's uncompressed
+   ``tensile`` plan must give results bit-identical to the unscheduled
+   run, the compressed plan results within stated tolerances, and the
+   card's allocator peak must sit within 5 % of the executor's ledger
+   peak and below the unscheduled run's.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -30,6 +43,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -38,20 +52,35 @@ import time
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.core import MachineProfile, MemoryEngine  # noqa: E402
+from repro_torch.core import (CostModel, DeviceCalibration,  # noqa: E402
+                              FxExecutor, MachineProfile, MemoryEngine,
+                              MemoryScheduler, Pipeline, SchedulerConfig,
+                              SchedulingPlan,
+                              build_pipeline, calibrate_cuda,
+                              capture_train_step, evaluate, schedule_single,
+                              simulate)
+from repro_torch.core.passes import (CompressedOffloadPass,  # noqa: E402
+                                     RecomputePass, SwapPass)
+import repro_torch.core.executor as tensile_executor  # noqa: E402
+from repro_torch.core.graph_capture import graph_layout  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_block_copy as kbc  # noqa: E402
+from repro_torch.kernels import offload_quant as oq  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      kv_block_gather_ref,
-                                     kv_block_scatter_ref)
+                                     dequantize_blocked_ref,
+                                     kv_block_scatter_ref,
+                                     quantize_blocked_ref)
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
+                                     build_functional_train_step,
                                      build_prefill_step, build_train_step,
                                      opt_state_for)
 from repro_torch.models import transformer  # noqa: E402
@@ -59,6 +88,8 @@ from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
+from repro_torch.optim.adam import adamw_init  # noqa: E402
+from repro_torch.service.workloads import make_mlp, mlp_numpy  # noqa: E402
 import repro_torch.serving.engine as serving_engine  # noqa: E402
 from repro_torch.serving import ServingEngine, make_trace  # noqa: E402
 
@@ -71,9 +102,53 @@ PREFILL_B, PREFILL_S = 4, 2048          # the model's published context
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 4
 SOURCE = "src/repro_torch/csrc/kv_block_copy.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+QUANT_SOURCE = "src/repro_torch/csrc/offload_quant.cu"
 REPLACES = {"kv_block_gather": "src/repro/kernels/kv_block_copy.py:34",
             "kv_block_scatter": "src/repro/kernels/kv_block_copy.py:58",
-            "flash_attention_fwd": "src/repro/kernels/flash_attention.py:77"}
+            "flash_attention_fwd": "src/repro/kernels/flash_attention.py:77",
+            "quantize_blocked": "src/repro/kernels/offload_quant.py:43",
+            "dequantize_blocked": "src/repro/kernels/offload_quant.py:60"}
+# quantize/dequantize sweep: ragged lengths (one element, a row less one, a
+# row and one, the reference's (37, 129)) in each input dtype, and 64 MiB
+QUANT_SHAPES = [(1,), (511,), (513,), (37, 129)]
+QUANT_BIG = (16 << 20,)
+# the quickstart (examples/quickstart.py): its MLP, batch, planning profile
+# and the capture-time cost model the reference uses by default
+MLP_SIZES, MLP_BATCH = [256, 1024, 1024, 1024, 16], 64
+QUICKSTART_PROFILE = MachineProfile(host_link_bw=16e9, compute_flops=5e10,
+                                    mem_bw=1e10)
+QUICKSTART_CALIB = DeviceCalibration(flops=5e10, mem_bw=1e10)
+# the full-width TENSILE train step: the compressed plan is first planned
+# against this fraction of the unscheduled planned peak, which it cannot
+# reach; the budget is then the peak it reaches, the tightest it can hold
+TENSILE_ITERS = 3
+FLOOR_FRACTION = 0.5
+# the compressed plan's pipeline: the three passes of
+# ``tensile+compressed-offload`` with the compressed pass first.  In the
+# named order the plain swap pass books the whole host link at this width
+# (mostly optimizer state), and the compressed pass after it finds no
+# channel time (PERF.md).  It plans within the iteration: across it, the
+# plan compressed parameters and moments too and held no recompute
+# (PERF.md); the ``tensile`` plan carries the across-iteration events
+COMPRESSED_FIRST = "compressed-first"
+# no early stop on stagnation: hundreds of small compressed swaps each move
+# the peak by less than the stop's 0.05 % before the other passes run
+PLAN_PATIENCE = SchedulerConfig().max_iterations
+# the card's allocator peak against the executor's ledger peak
+ALLOC_LEDGER_TOL = 0.05
+# A compressed step against the unscheduled (exact) step from the same
+# state.  Loss: |diff| / |value|.  Parameters and moments: per leaf, the
+# compressed step's update new_c - old against the exact step's new_e -
+# old, by direction (cosine) and by size (norm ratio), each as the median
+# over the leaves whose exact update is not zero.  The int8 rounding of
+# activations read again in the forward moves the first step's gradient
+# by most of its norm through 22 random layers (||diff|| / ||exact||
+# medians 0.73, 0.84, 0.91 for parameters, mu and nu on the H100;
+# PERF.md), so the gate is on what such noise keeps and a fault loses: a
+# skipped update reads cosine 0 and ratio 0, a sign-flipped one cosine -1,
+# an update applied twice ratio 2.  The script checks that the skipped
+# update fails.
+COMPRESSED_TOL = {"loss": 5e-3, "cosine": 0.2, "ratio": (0.5, 2.0)}
 # (B, Sq, Skv, H, KV, D, causal, dtype, window): the reference's sweep,
 # tests/test_kernels.py:19-48
 FLASH_SWEEP = [
@@ -766,11 +841,586 @@ def check_train_step_on_small_input() -> None:
         f"{float(mg['loss']):.6f} vs {float(mc['loss']):.6f})")
 
 
+# ----------------------------------------------------------------------
+# TENSILE: quantize kernels, the quickstart MLP, the full-width train step
+# ----------------------------------------------------------------------
+def check_quant(cases=None) -> dict:
+    """Both quantize kernels against their plain versions on the card:
+    int8 rows, scales and meta bit-exact, dequantized values exact, for
+    fp32, bf16 and fp16 inputs at ragged lengths and one 64 MiB fp32
+    tensor (or at the ``(shape, dtype)`` pairs of ``cases``); fp32 round
+    trips within the reference's bound (absmax/127 per element,
+    tests/test_kernels.py:71-82).  Returns the largest kernel vs
+    plain difference (0.0 when all pass) and the largest fp32 round-trip
+    error over its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst, worst_rt = 0.0, 0.0
+    if cases is None:
+        cases = [(s, d) for d in (torch.float32, torch.bfloat16,
+                                  torch.float16)
+                 for s in QUANT_SHAPES] + [(QUANT_BIG, torch.float32)]
+    for shape, dtype in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
+        q, s, meta = oq.quantize_blocked(x)
+        qr, sr, mr = quantize_blocked_ref(x)
+        xk = oq.dequantize_blocked(q, s, meta)
+        xp = dequantize_blocked_ref(q, s, meta)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(q, qr), max_abs_err(s, sr),
+                    max_abs_err(xk, xp))
+        same = {"q": torch.equal(q, qr), "s": torch.equal(s, sr),
+                "meta": meta == mr, "dequantized": torch.equal(xk, xp)
+                and xk.shape == x.shape}
+        if not all(same.values()):
+            raise AssertionError(f"quantize kernels differ at {shape} "
+                                 f"{dtype}: {same}, max_abs_err {worst}")
+        if dtype == torch.float32:
+            bound = (float(x.abs().max()) / 127.0 + 1e-7) * 1.01
+            err = max_abs_err(xk, x)
+            worst_rt = max(worst_rt, err / bound)
+            if err > bound:
+                raise AssertionError(f"round trip at {shape}: {err} > "
+                                     f"{bound}")
+        log(f"[quant] bit-exact: {shape} {dtype}")
+    return {"max_abs_err": worst, "round_trip_err_over_bound": worst_rt}
+
+
+def time_quant(shape, dtype) -> dict:
+    """Times of both wrappers (CUDA events over back-to-back calls, and the
+    device time from a profiler trace) and of their plain versions at one
+    shape, with the byte bound at 3.35 TB/s: quantize reads n * itemsize and
+    writes n + 4 R bytes, dequantize the reverse."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q, s, meta = oq.quantize_blocked(x)
+    n, rows = x.numel(), q.shape[0]
+    moved = n * x.element_size() + n + 4 * rows
+    res = {}
+    for name, fn, plain in (
+            ("quantize_blocked", lambda: oq.quantize_blocked(x),
+             lambda: quantize_blocked_ref(x)),
+            ("dequantize_blocked", lambda: oq.dequantize_blocked(q, s, meta),
+             lambda: dequantize_blocked_ref(q, s, meta))):
+        res[name] = {"ms": events_ms(fn, 10, inner=10),
+                     "device_ms": device_ms(fn),
+                     "plain_ms": events_ms(plain, 5, inner=2),
+                     "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                     "bytes": moved, "shape": list(shape),
+                     "dtype": str(dtype).replace("torch.", "")}
+    res["quantize_source_bytes_per_s"] = (
+        n * x.element_size() / (res["quantize_blocked"]["ms"] * 1e-3))
+    log("[time] quant " + json.dumps(res))
+    return res
+
+
+def tensile_mlp() -> dict:
+    """The quickstart on the card: the MLP (weights and data from numpy
+    seed 0) captured, planned by ``schedule_single`` with the quickstart
+    profile, and executed in sync mode.  Gates: the plan schedules events,
+    the executor's ledger peak and decision trace equal the simulator's
+    (sync transfers), and the outputs are bit-equal to the unscheduled
+    executor's."""
+    np_params, np_data = mlp_numpy(MLP_SIZES, MLP_BATCH, seed=0)
+    step, params, opt, batch = make_mlp(MLP_SIZES, MLP_BATCH, params=np_params,
+                                        data=np_data, device="cuda")
+    seq, gm = capture_train_step(step, params, opt, batch,
+                                 cost_model=CostModel(QUICKSTART_CALIB))
+    res = schedule_single(seq, profile=QUICKSTART_PROFILE)
+    plan = res.plans[seq.job_id]
+    sim_eng = MemoryEngine(QUICKSTART_PROFILE, trace=True)
+    sim = simulate([seq], {seq.job_id: plan}, QUICKSTART_PROFILE,
+                   iterations=1, transfer_mode="sync", engine=sim_eng)
+    ex_eng = MemoryEngine(QUICKSTART_PROFILE, trace=True)
+    ex = FxExecutor(gm, seq, plan, engine=ex_eng)
+    out = ex.run(params, opt, batch)
+    ex0 = FxExecutor(gm, seq, None, engine=MemoryEngine(QUICKSTART_PROFILE))
+    out0 = ex0.run(params, opt, batch)
+    torch.cuda.synchronize()
+    metrics = evaluate([seq], res.plans, QUICKSTART_PROFILE)
+    info = {"operators": len(seq.operators), "tensors": len(seq.tensors),
+            "swaps": res.swaps_scheduled,
+            "recomputes": res.recomputes_scheduled,
+            "events": len(plan.events),
+            "predicted_peak": res.final_report.peak_bytes,
+            "sim_peak": sim.peak_bytes, "executor_peak": ex.stats.peak_bytes,
+            "unscheduled_peak": ex0.stats.peak_bytes,
+            "trace_records": len(ex_eng.trace.keys()),
+            "swap_outs": ex.stats.swap_out_count,
+            "swap_ins": ex.stats.swap_in_count,
+            "simulated_MSR": metrics["MSR"], "simulated_EOR": metrics["EOR"]}
+    log("[tensile_mlp] " + json.dumps(info))
+    if not plan.events:
+        raise AssertionError("the quickstart plan schedules nothing")
+    if ex.stats.peak_bytes != sim.peak_bytes:
+        raise AssertionError(f"executor peak {ex.stats.peak_bytes} != "
+                             f"simulated {sim.peak_bytes}")
+    if ex_eng.trace.keys() != sim_eng.trace.keys():
+        raise AssertionError("executor and simulator decision traces differ")
+    # a storage the plan parks on the host comes back as a host tensor
+    if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(out, out0)):
+        raise AssertionError("scheduled MLP outputs differ from unscheduled")
+    return info
+
+
+def _tensile_state(cfg, batch) -> list:
+    """A fresh full-width train state as a flat list of leaves in the
+    step's argument order: parameters from a CUDA generator seeded 0, zero
+    AdamW moments, the fixed batch.  Nothing else keeps a reference to the
+    parameters, so the executor can free what the plan frees."""
+    params = dict(TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)).named_parameters())
+    return pytree.tree_leaves([params, adamw_init(params), batch])
+
+
+def _run_state(ex, state: list, base: int) -> tuple:
+    """One executor iteration on the donated ``state``; returns the
+    outputs, wall seconds, the allocator's peak over the run (reset before
+    it) less ``base`` (what was allocated before the state existed), and
+    the executor's ledger peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = ex.run_donated(state)
+    wall = time.perf_counter() - t0
+    return (outs, wall, torch.cuda.max_memory_allocated() - base,
+            ex.stats.peak_bytes)
+
+
+def _plan(seq, profile, name: str, budget: int):
+    cfg = SchedulerConfig(memory_budget_bytes=budget,
+                          patience_iters=PLAN_PATIENCE)
+    if name == COMPRESSED_FIRST:
+        pipeline = Pipeline([CompressedOffloadPass(), SwapPass(),
+                             RecomputePass()], name=name, profile=profile,
+                            config=cfg)
+    else:
+        pipeline = build_pipeline(name, profile, cfg)
+    ms = MemoryScheduler(profile, cfg, pipeline=pipeline)
+    ms.register_job(seq)
+    t0 = time.perf_counter()
+    res = ms.schedule()
+    return res, time.perf_counter() - t0
+
+
+def _uncompressed(plan):
+    """``plan`` with every event's compressed flag cleared."""
+    out = SchedulingPlan(plan.job_id)
+    for e in plan.events:
+        out.add(dataclasses.replace(e, compressed=False))
+    out.release_after_op.update(plan.release_after_op)
+    return out
+
+
+def _channel_share(seq, plan) -> float:
+    """The share of the iteration the plan books on the host link."""
+    return sum(e.duration for e in plan.events if e.event_type.value in (
+        "swap_out", "swap_in")) / seq.iteration_time
+
+
+def _event_counts(seq, plan) -> dict:
+    c = collections.Counter()
+    for e in plan.events:
+        c[e.event_type.value] += 1
+        if e.crosses_iteration:
+            c["across_iteration"] += 1
+        if e.compressed:
+            c[f"compressed_{e.event_type.value}_"
+              f"{seq.tensors[e.tensor_id].kind.value}"] += 1
+    return dict(c)
+
+
+def _host_copy(outs) -> list:
+    return [o.detach().to("cpu", copy=True) for o in outs]
+
+
+def _update_diffs(outs, ref, old, groups) -> dict:
+    """Per group of state leaf positions, for each leaf i, the update
+    ``d_c = outs_i - old_i`` against the exact update ``d_e = ref_i -
+    old_i`` (fp64 on the card, one leaf at a time): cosine (0 where
+    ``d_c`` is zero), ``||d_c|| / ||d_e||`` and ``||d_c - d_e|| /
+    ||d_e||``.  Returns each one's median over the leaves with a nonzero
+    exact update, the worst leaf by cosine, the count of leaves without an
+    exact update and the count of non-finite entries of ``outs``."""
+    out = {}
+    for name, idx in groups.items():
+        cos, ratio, rel, bad = [], [], [], 0
+        for i in idx:
+            a = outs[i].to("cuda", torch.float64)
+            o = old[i].to("cuda", torch.float64)
+            d_e = ref[i].to("cuda", torch.float64) - o
+            d_c = a - o
+            bad += int((~torch.isfinite(a)).sum())
+            n_e, n_c = float(d_e.norm()), float(d_c.norm())
+            if n_e > 0:
+                cos.append((float((d_c * d_e).sum()) / (n_c * n_e)
+                            if n_c > 0 else 0.0, i))
+                ratio.append(n_c / n_e)
+                rel.append(float((d_c - d_e).norm()) / n_e)
+        out[name] = {"cosine": statistics.median(c for c, _ in cos),
+                     "ratio": statistics.median(ratio),
+                     "rel_l2": statistics.median(rel),
+                     "min_cosine": min(cos)[0], "worst_leaf": min(cos)[1],
+                     "no_update": len(idx) - len(cos), "nonfinite": bad}
+    return out
+
+
+def _update_failures(diffs: dict) -> list:
+    """What of ``diffs`` breaks COMPRESSED_TOL: a group with non-finite
+    entries, a median cosine under its limit, a median ratio outside its
+    band."""
+    lo, hi = COMPRESSED_TOL["ratio"]
+    fails = []
+    for k, v in diffs.items():
+        if v["nonfinite"]:
+            fails.append(f"{k}: non-finite")
+        if not v["cosine"] >= COMPRESSED_TOL["cosine"]:
+            fails.append(f"{k}: cosine {v['cosine']} < "
+                         f"{COMPRESSED_TOL['cosine']}")
+        if not lo <= v["ratio"] <= hi:
+            fails.append(f"{k}: ratio {v['ratio']} outside {lo}-{hi}")
+    return fails
+
+
+def _scheduled(gm, seq, plan, profile, cfg, batch, n_state: int, tag: str,
+               check, base: int, exact: bool = False) -> tuple:
+    """TENSILE_ITERS async iterations from a fresh state, the storages
+    parked on the host at each iteration's end carried into the next as
+    host-resident inputs.  ``check(k, outs, ref)`` returns extra fields for
+    iteration k; with ``exact``, ``ref`` holds host copies of the
+    unscheduled step's outputs from the same state (``outs``) and of that
+    state (``old``), else it is None.  Returns the records, the final
+    state and its host set."""
+    torch.cuda.empty_cache()
+    state = _tensile_state(cfg, batch)
+    batch_leaves = pytree.tree_leaves(batch)
+    host_inputs: set = set()
+    recs = []
+    for k in range(TENSILE_ITERS):
+        ref = None
+        if exact:
+            ref = {"outs": _host_copy(FxExecutor(gm, seq, None, engine=(
+                MemoryEngine(profile))).run(state)),
+                "old": _host_copy(state[:n_state])}
+            torch.cuda.empty_cache()
+        ex = FxExecutor(gm, seq, plan, async_swap=True,
+                        host_resident_inputs=host_inputs,
+                        engine=MemoryEngine(profile))
+        outs, wall, alloc, ledger = _run_state(ex, state, base)
+        rec = {"iteration": k + 1, "wall_s": wall,
+               "max_memory_allocated": alloc, "ledger_peak": ledger,
+               "swap_outs": ex.stats.swap_out_count,
+               "swap_ins": ex.stats.swap_in_count,
+               "passive_swap_ins": ex.stats.passive_swap_ins,
+               "recomputes": ex.stats.recompute_count,
+               "compressed_swaps": ex.stats.compressed_swaps,
+               "host_stall_s": ex.stats.stall_time_s,
+               "transfer_launches": len(ex.async_exec.batches),
+               "loss": float(outs[n_state]),
+               "parked_at_end": len(ex.ending_host_storages())}
+        rec.update(check(k, outs, ref))
+        recs.append(rec)
+        log(f"[tensile] {tag} " + json.dumps(rec))
+        host_inputs = ex.ending_host_storages()
+        state = outs[:n_state] + batch_leaves
+        del ex, outs, ref
+    return recs, state, host_inputs
+
+
+def _forward_reads(gm, seq, plan, loss_pos: int) -> tuple:
+    """The loss's operator and the plan's compressed swap-ins whose target
+    operator comes at or before it (a forward operator), in target order,
+    each with its tensor, the tensor's producer and its swap-out."""
+    lay = graph_layout(gm)
+    loss_tid = lay.tid[lay.owner[lay.out_leaves[loss_pos]]]
+    loss_op = next(op.idx for op in seq.operators if loss_tid in op.outputs)
+    producer = {t: op for op in seq.operators for t in op.outputs}
+    outs = collections.defaultdict(list)
+    for e in plan.events:
+        if e.compressed and e.event_type.value == "swap_out":
+            outs[e.tensor_id].append(e.trigger_op)
+    reads = []
+    for e in sorted((e for e in plan.events if e.compressed
+                     and e.event_type.value == "swap_in"
+                     and e.target_op is not None
+                     and e.target_op <= loss_op),
+                    key=lambda e: e.target_op):
+        t, p = seq.tensors[e.tensor_id], producer.get(e.tensor_id)
+        reads.append({
+            "tensor": e.tensor_id, "kind": t.kind.value,
+            "shape": list(t.shape), "dtype": t.dtype,
+            "producer": f"{p.idx} {p.name}" if p else None,
+            "swapped_out_after_op": max(
+                (o for o in outs[e.tensor_id] if o < e.target_op),
+                default=None),
+            "read_by_op": f"{e.target_op} "
+                          f"{seq.operators[e.target_op].name}"})
+    return loss_op, reads
+
+
+def tensile_train(link: dict, quant_bw: float) -> dict:
+    """The paper's loop at full width: capture the train step on fake
+    tensors, plan it under a budget, execute it (see the module
+    docstring).  Returns what the kernel table and the report need."""
+    cfg = dataclasses.replace(get_config(ARCH), remat="none")
+    api = get_model(cfg, "cuda")
+    batch = api.input_specs(ShapeSpec("tensile_train", TRAIN_S, TRAIN_B,
+                                      "train"), abstract=False, seed=0)
+    step = build_functional_train_step(api, TrainStepConfig())
+    calib = calibrate_cuda()
+    log(f"[tensile] calibrate_cuda: {calib.flops:.4e} flop/s, "
+        f"{calib.mem_bw:.4e} B/s")
+    params = dict(TransformerLM(cfg, device="meta").named_parameters())
+    n_params, names = len(params), list(params)
+    t0 = time.perf_counter()
+    # traced on fake tensors: the arguments' shapes, dtypes and device only
+    args = pytree.tree_map(lambda p: torch.empty_like(p, device="cuda"),
+                           (params, adamw_init(params)))
+    seq, gm = capture_train_step(step, *args, batch,
+                                 cost_model=CostModel(calib))
+    capture_s = time.perf_counter() - t0
+    del params, args
+    n_state = 1 + 3 * n_params                 # params, step, mu, nu
+    groups = {"params": range(n_params),
+              "mu": range(n_params + 1, 2 * n_params + 1),
+              "nu": range(2 * n_params + 1, 3 * n_params + 1)}
+    profile = MachineProfile(host_link_bw=link["host_link_bw"],
+                             host_link_latency=link["host_link_latency"],
+                             dma_batch_overhead=link["dma_batch_overhead"],
+                             offload_quant_bw=quant_bw)
+    unsched_peak = simulate([seq], None, profile, iterations=1,
+                            transfer_mode="sync").peak_bytes
+    log(f"[tensile] captured {len(seq.operators)} operators, "
+        f"{len(seq.tensors)} tensors in {capture_s:.2f} s; unscheduled "
+        f"planned peak {unsched_peak} B")
+
+    # what the card holds before any train state exists (the allocator's
+    # readings below are net of it)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    log(f"[tensile] allocated before the train state: {base} B")
+
+    # ---- unscheduled: twice from the same state.  The first run times
+    # each operator (synchronised), and its latencies replace the analytic
+    # ones in the sequence, as the paper's runtime feeds measured latencies
+    # back; the second run is the timed one ----------------------------
+    unsched = []
+    analytic_s = seq.iteration_time
+    for measure in (True, False):
+        torch.cuda.empty_cache()
+        ex = FxExecutor(gm, seq, None, engine=MemoryEngine(profile),
+                        measure_latency=measure)
+        outs, wall, alloc, ledger = _run_state(
+            ex, _tensile_state(cfg, batch), base)
+        unsched.append({"wall_s": wall, "max_memory_allocated": alloc,
+                        "ledger_peak": ledger})
+        if measure:
+            seq.set_latencies(ex.stats.op_latencies)
+            ref1 = _host_copy(outs)
+        del ex, outs
+    log("[tensile] unscheduled: " + json.dumps(unsched))
+    log(f"[tensile] iteration time: analytic {analytic_s:.4f} s, measured "
+        f"per operator {seq.iteration_time:.4f} s")
+
+    # ---- plan: the compressed plan against an unreachable budget; the
+    # peak it reaches is the budget of every scheduled run --------------
+    res_c, plan_s = _plan(seq, profile, COMPRESSED_FIRST,
+                          int(FLOOR_FRACTION * unsched_peak))
+    plan_c = res_c.plans[seq.job_id]
+    budget = res_c.final_report.peak_bytes
+    counts_c = _event_counts(seq, plan_c)
+    log(f"[tensile] {COMPRESSED_FIRST} plan: {json.dumps(counts_c)}, "
+        f"budget {budget} B ({budget / unsched_peak:.4f} of the unscheduled "
+        f"planned peak), host link booked {_channel_share(seq, plan_c):.3f}"
+        f" of the iteration, {res_c.iterations} planner iterations in "
+        f"{plan_s:.2f} s")
+    plans = {}
+    for name in ("tensile+compressed-offload", "tensile"):
+        res_n, plan_n_s = _plan(seq, profile, name, budget)
+        plans[name] = (res_n, res_n.plans[seq.job_id])
+        log(f"[tensile] {name} at the same budget: "
+            f"{json.dumps(_event_counts(seq, plans[name][1]))}, predicted "
+            f"peak {res_n.final_report.peak_bytes} B, host link booked "
+            f"{_channel_share(seq, plans[name][1]):.3f} of the iteration, "
+            f"{plan_n_s:.2f} s")
+    res_t, plan_t = plans["tensile"]
+    counts_t = _event_counts(seq, plan_t)
+    missing = [f"{name}: {k}" for name, c, kinds in (
+        ("compressed", counts_c, ("swap_out", "swap_in", "recompute")),
+        ("tensile", counts_t, ("swap_out", "swap_in", "across_iteration")))
+        for k in kinds if not c.get(k)]
+    if not any(k.startswith("compressed") for k in counts_c):
+        missing.append("compressed: compressed events")
+    if missing:
+        raise AssertionError(f"the plans lack {missing}")
+    if res_c.final_report.peak_bytes > budget:
+        raise AssertionError(f"predicted peak {res_c.final_report.peak_bytes}"
+                             f" > budget {budget}")
+    sim = {name: evaluate([seq], {seq.job_id: p}, profile, iterations=3)
+           for name, p in (("compressed", plan_c), ("tensile", plan_t))}
+    log("[tensile] simulated (3 iterations, vs no-free vanilla): "
+        + json.dumps(sim))
+    # what can change the first step's loss: compressed copies read again
+    # before the loss is computed
+    loss_op, fwd_reads = _forward_reads(gm, seq, plan_c, n_state)
+    log(f"[tensile] loss computed by op {loss_op} "
+        f"{seq.operators[loss_op].name}; {len(fwd_reads)} compressed "
+        f"swap-ins read at or before it; the first: "
+        f"{json.dumps(fwd_reads[:3])}")
+
+    # ---- the uncompressed plan: every step bit-identical to the
+    # unscheduled step from the same state --------------------------------
+    def check_plain(k, outs, ref):
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(outs, ref["outs"]))
+        if not same:
+            raise AssertionError(f"the uncompressed tensile plan's step "
+                                 f"{k + 1} differs from the unscheduled step")
+        return {"bit_identical_to_unscheduled": True}
+
+    if not all(torch.equal(a, b) for a, b in zip(ref1, _host_copy(
+            FxExecutor(gm, seq, None, engine=MemoryEngine(profile)).run(
+                _tensile_state(cfg, batch))))):
+        raise AssertionError("two unscheduled runs differ")
+    del ref1
+    plain_recs, _, _ = _scheduled(gm, seq, plan_t, profile, cfg, batch,
+                                  n_state, "tensile", check_plain, base,
+                                  exact=True)
+
+    # ---- the compressed plan: the main path, each step's update against
+    # the unscheduled step's from the same state ---------------------------
+    def check_comp(k, outs, ref):
+        loss, loss_ref = float(outs[n_state]), float(ref["outs"][n_state])
+        rec = {"loss_rel_diff": abs(loss - loss_ref) / abs(loss_ref),
+               "loss_bit_identical": bool(torch.equal(
+                   outs[n_state].cpu(), ref["outs"][n_state])),
+               "update_vs_exact_step": _update_diffs(
+                   outs, ref["outs"], ref["old"], groups)}
+        for g, d in rec["update_vs_exact_step"].items():
+            d["worst_leaf"] = names[d["worst_leaf"] - groups[g].start]
+        if k == 0:
+            # the gate must reject a skipped update (cosine 0, ratio 0)
+            rec["skipped_update"] = _update_diffs(
+                ref["old"], ref["outs"], ref["old"], groups)
+            if not _update_failures(rec["skipped_update"]):
+                raise AssertionError("the update check passes a skipped "
+                                     "update")
+            # the same events uncompressed on the copy stream, from the same
+            # state, must give the unscheduled step bit for bit: a race of
+            # the copy stream shows here, where int8 rounding cannot hide it
+            exact = _host_copy(FxExecutor(
+                gm, seq, _uncompressed(plan_c), async_swap=True,
+                engine=MemoryEngine(profile)).run_donated(
+                    _tensile_state(cfg, batch)))
+            if not all(torch.equal(a, b) for a, b in zip(exact,
+                                                          ref["outs"])):
+                raise AssertionError("the compressed plan's events, "
+                                     "uncompressed, differ from the "
+                                     "unscheduled step")
+            rec["uncompressed_events_bit_identical"] = True
+        return rec
+
+    shapes = collections.Counter()
+    oq.quantize_blocked.launches = 0          # the main path: counts from 0
+    oq.dequantize_blocked.launches = 0
+    tensile_executor.quantize_blocked = _spy_quant(oq.quantize_blocked,
+                                                   shapes)
+    try:
+        comp_recs, state, host_inputs = _scheduled(
+            gm, seq, plan_c, profile, cfg, batch, n_state,
+            "tensile+compressed-offload", check_comp, base, exact=True)
+    finally:
+        tensile_executor.quantize_blocked = oq.quantize_blocked
+    launches = {"quantize_blocked": oq.quantize_blocked.launches,
+                "dequantize_blocked": oq.dequantize_blocked.launches}
+    log(f"[tensile] main-path launches {launches}; quantized shapes "
+        f"{ {str(k): v for k, v in shapes.items()} }")
+
+    # ---- one more compressed iteration under the profiler -------------
+    ex = FxExecutor(gm, seq, plan_c, async_swap=True,
+                    host_resident_inputs=host_inputs,
+                    engine=MemoryEngine(profile))
+    box = [state]
+    del state
+    prof = profile_window(lambda: box.append(ex.run_donated(box.pop())))
+    del ex, box
+    torch.cuda.empty_cache()
+
+    comp_kinds = collections.Counter(
+        seq.tensors[e.tensor_id].kind.value for e in plan_c.events
+        if e.compressed and e.event_type.value == "swap_out")
+    t_unsched = unsched[1]["wall_s"]
+    t_sched = statistics.median(r["wall_s"] for r in comp_recs[1:])
+    alloc_u = unsched[1]["max_memory_allocated"]
+    alloc_s = max(r["max_memory_allocated"] for r in comp_recs)
+    out = {
+        "operators": len(seq.operators), "tensors": len(seq.tensors),
+        "capture_s": capture_s, "budget": budget,
+        "budget_fraction": budget / unsched_peak,
+        "planned_unscheduled_peak": unsched_peak,
+        "predicted_peak": res_c.final_report.peak_bytes,
+        "tensile_predicted_peak": res_t.final_report.peak_bytes,
+        "predicted_MSR": 1 - res_c.final_report.peak_bytes / unsched_peak,
+        "measured_MSR": 1 - alloc_s / alloc_u,
+        "simulated_EOR": sim["compressed"]["EOR"],
+        "analytic_iteration_s": analytic_s,
+        "measured_iteration_s": seq.iteration_time,
+        "unscheduled_step_s": t_unsched, "scheduled_step_s": t_sched,
+        "measured_EOR": t_sched / t_unsched - 1,
+        "planning_s": plan_s, "planner_iterations": res_c.iterations,
+        "plan_events": _event_counts(seq, plan_c),
+        "compressed_swap_out_kinds": dict(comp_kinds),
+        "loss_op": loss_op, "forward_compressed_reads": len(fwd_reads),
+        "unscheduled": unsched, "tensile": plain_recs,
+        "compressed": comp_recs, "launches": launches,
+        "quantized_shapes": {str(k): v for k, v in shapes.items()},
+        "profile": prof}
+    log("[tensile_train] " + json.dumps(
+        {k: v for k, v in out.items()
+         if k not in ("tensile", "compressed")}))
+    out["quantized_shapes_raw"] = dict(shapes)
+    for r in comp_recs:
+        gap = abs(r["max_memory_allocated"] / r["ledger_peak"] - 1)
+        if gap > ALLOC_LEDGER_TOL:
+            raise AssertionError(
+                f"iteration {r['iteration']}: allocator peak "
+                f"{r['max_memory_allocated']} B is {gap:.2%} off the ledger "
+                f"peak {r['ledger_peak']} B")
+        if r["max_memory_allocated"] >= alloc_u:
+            raise AssertionError("the scheduled run's allocator peak is not "
+                                 "below the unscheduled run's")
+        fails = _update_failures(r["update_vs_exact_step"])
+        if not r["loss_rel_diff"] <= COMPRESSED_TOL["loss"]:
+            fails.append(f"loss: {r['loss_rel_diff']} > "
+                         f"{COMPRESSED_TOL['loss']}")
+        if fails:
+            raise AssertionError(f"compressed plan, iteration "
+                                 f"{r['iteration']}: {fails}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    return out
+
+
+def _spy_quant(fn, shapes):
+    def call(x):
+        shapes[(tuple(x.shape), str(x.dtype).replace("torch.", ""))] += 1
+        return fn(x)
+    return call
+
+
 def _spy(fn, name, shapes):
     def call(pool, idx, *rest):
         shapes[(name, tuple(pool.shape), str(pool.dtype), len(idx))] += 1
         return fn(pool, idx, *rest)
     return call
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name} {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -786,20 +1436,20 @@ def main() -> int:
     log(card_line())
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
-    build()
+    timed("build", build)
 
-    link = measure_host_link()
+    link = timed("host_link", measure_host_link)
     log("[host_link] " + json.dumps(link))
 
     width = 22 * MAX_LEN * 4 * 64          # one slot's row of a KV leaf
     serve_shapes = [(MAX_SEQUENCES, width, torch.bfloat16, k)
                     for k in (2, 3, 4)]
-    worst = check_kernels(serve_shapes + [
+    worst = timed("check_kernels", check_kernels, serve_shapes + [
         (MAX_SEQUENCES, width, torch.float32, 3),
         (7, 1001, torch.bfloat16, 3),        # 2-byte rows: element path
         (5, 333, torch.float32, 2),          # 4-byte rows
         (6, 77, torch.uint8, 4)])            # 1-byte rows
-    check_decode_on_small_input()
+    timed("check_decode", check_decode_on_small_input)
 
     timings = {}
     for n, w, dtype, k in serve_shapes:
@@ -807,20 +1457,38 @@ def main() -> int:
         log(f"[time] pool ({n}, {w}) {dtype} K={k}: "
             + json.dumps(timings[k]))
 
-    profile = MachineProfile()
-    result = serve(profile)
-    profile_decode(result["eng"])
-    flash_errs = check_flash()
-    pre = prefill(result["eng"])
-    check_forward_on_small_input()
-    train(result["eng"])
-    check_train_step_on_small_input()
-    tf = time_flash()
+    result = timed("serve", serve, MachineProfile())
+    timed("profile_decode", profile_decode, result["eng"])
+    flash_errs = timed("check_flash", check_flash)
+    pre = timed("prefill", prefill, result["eng"])
+    timed("check_forward", check_forward_on_small_input)
+    timed("train", train, result["eng"])
+    timed("check_train_step", check_train_step_on_small_input)
+    tf = timed("time_flash", time_flash)
     bud = result["runs"]["budgeted"]
+    serve_launches = bud["launches"]
+    serve_shapes_seen = bud["shapes"]
+    del result, bud
+    torch.cuda.empty_cache()
+
+    quant = timed("check_quant", check_quant)
+    quant_big = timed("time_quant", time_quant, QUANT_BIG, torch.float32)
+    timed("tensile_mlp", tensile_mlp)
+    tt = timed("tensile_train", tensile_train, link,
+               quant_big["quantize_source_bytes_per_s"])
+    # both kernels against their plain versions at every shape the main
+    # path quantized
+    quant_main = timed("check_quant_main_path", check_quant, [
+        (shape, getattr(torch, dtype))
+        for shape, dtype in tt["quantized_shapes_raw"]])
+    # the kernels' times at the main path's most quantized shape
+    (shape, dtype), _ = max(tt["quantized_shapes_raw"].items(),
+                            key=lambda kv: (kv[1], math.prod(kv[0][0])))
+    qt = timed("time_quant", time_quant, shape, getattr(torch, dtype))
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         ks = collections.Counter()
-        for (kname, _, _, k), c in bud["shapes"].items():
+        for (kname, _, _, k), c in serve_shapes_seen.items():
             if kname == name:
                 ks[k] += c
         k_main = ks.most_common(1)[0][0] if ks else 2
@@ -828,7 +1496,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": bud["launches"][name],
+            "launches": serve_launches[name],
             "max_abs_err": worst,
             "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
             "bound_ms": t[name]["bound_ms"], "bound_by": "bytes",
@@ -848,6 +1516,18 @@ def main() -> int:
         "library_ms": tf["library_ms"], "device_ms": tf["device_ms"],
         "tolerance": FLASH_TOL[torch.bfloat16],
         "shape": [b, sq, h, kvh, d, "bfloat16", "causal"]})
+    for name in ("quantize_blocked", "dequantize_blocked"):
+        kernels.append({
+            "name": name, "route": "cuda", "source": QUANT_SOURCE,
+            "replaces": REPLACES[name], "launches": tt["launches"][name],
+            "max_abs_err": max(quant["max_abs_err"],
+                               quant_main["max_abs_err"]),
+            "ms": qt[name]["ms"], "plain_ms": qt[name]["plain_ms"],
+            "bound_ms": qt[name]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "device_ms": qt[name]["device_ms"],
+            "shape": qt[name]["shape"], "dtype": qt[name]["dtype"],
+            "ms_64mib_fp32": quant_big[name]["ms"],
+            "bound_ms_64mib_fp32": quant_big[name]["bound_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 (``jax.tree.map(np.asarray, params)``, with ``blocks`` stacked on axis 0)
 and returns the port's module holding the same values, so both packages
 compute the same function.  ``adam_state_from_jax`` does the same for the
-reference's ``AdamState``.  Nothing here imports JAX: the caller converts.
+reference's ``AdamState``.  ``tree_from_numpy`` moves any pytree of numpy
+arrays (the MLP workload's weights and data) onto a device.  Nothing here
+imports JAX: the caller converts.
 """
 from __future__ import annotations
 
@@ -34,6 +36,14 @@ def _tensor(a) -> torch.Tensor:
     if a.dtype.name == "bfloat16":      # ml_dtypes bfloat16: reinterpret
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def tree_from_numpy(np_tree: Any, device=None) -> Any:
+    """The same pytree (dicts, lists, tuples) with every numpy leaf as a
+    tensor of its dtype on ``device`` (default ``cuda``)."""
+    import torch.utils._pytree as pytree
+    device = resolve_device(device)
+    return pytree.tree_map(lambda a: _tensor(a).to(device), np_tree)
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg, device=None

@@ -1,8 +1,49 @@
-"""The memory model the serving session books against: residency ledger,
-DMA channel, decision trace and machine profile."""
-from .engine import (DeviceLedger, DmaChannel, EngineTrace, JobLedgerView,
-                     MemoryEngine, TraceRecord)
-from .plan import MachineProfile
+"""TENSILE core in PyTorch: tensor-granularity memory scheduling (Zhang et
+al., 2021) for captured aten graphs on a CUDA card.
 
-__all__ = ["DeviceLedger", "DmaChannel", "EngineTrace", "JobLedgerView",
-           "MachineProfile", "MemoryEngine", "TraceRecord"]
+    capture / capture_train_step  -- PyTorch step -> aten graph -> Tensor
+                                     Access Sequence (make_fx, fake mode)
+    Pipeline / build_pipeline / PIPELINES -- composable planning passes
+    MemoryScheduler / schedule_single -- Algorithm 3 (tensile pipeline)
+    analyze                       -- Algorithm 2 (peak analysis)
+    MemoryEngine / DeviceLedger / DmaChannel -- the shared memory-event
+                                     engine the simulator, the executor and
+                                     the serving session run against
+    TelemetryHub                  -- one sink for op/transfer/stall/residency
+                                     records from both runtimes
+    simulate / evaluate           -- discrete-event metrics (MSR/EOR/CBR)
+    FxExecutor                    -- interpreting executor with real swaps to
+                                     pinned host memory
+    baselines                     -- vanilla / vDNN_conv / Capuchin wrappers
+
+The planner modules are copies of the JAX package's; capture, the cost
+model's node rules and the executor are this package's own.
+"""
+from .access import (AccessSequence, AccessType, Operator, Phase, TensorKind,
+                     TensorSpec, format_bytes)
+from .baselines import capuchin_plan, vanilla_plan, vdnn_conv_plan
+from .cost_model import (CalibrationReport, CostModel, DeviceCalibration,
+                         EWMATracker, calibrate_cuda)
+from .engine import (DeviceLedger, DmaChannel, EngineTrace, JobContext,
+                     JobLedgerView, MemoryEngine, SafePoint, TraceRecord,
+                     find_safe_points)
+from .executor import (AsyncSwapExecutor, ExecutionStats, FxExecutor,
+                       reference_outputs)
+from .graph_capture import CaptureSpec, capture, capture_train_step
+from .passes import (PIPELINES, BudgetAutoscalePass, CompressedOffloadPass,
+                     PassiveProfilePass, Pipeline, PlanningPass,
+                     PreemptiveReplanPass, PriorityPass, RecomputePass,
+                     SwapPass, VdnnSwapPass, build_pipeline)
+from .peak_analysis import PeakReport, analyze, unroll, vanilla_peak
+from .plan import (ChannelReservation, EventType, MachineProfile,
+                   ScheduleEvent, SchedulingPlan)
+from .recompute_planner import RecomputePlanner
+from .scheduler import (MemoryScheduler, ScheduleResult, SchedulerConfig,
+                        schedule_single)
+from .simulator import PlanUpdate, SimResult, evaluate, simulate
+from .swap_planner import PeriodicChannel, SwapPlanner
+from .telemetry import (IterationView, OpSample, ResidencySample,
+                        StallSample, TelemetryHub, TransferSample,
+                        record_schemas)
+
+__all__ = [n for n in dir() if not n.startswith("_")]

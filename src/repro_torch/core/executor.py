@@ -1,0 +1,752 @@
+"""Interpreting Executor (paper §III-D: Executor + Swap Executor) for
+captured aten graphs.
+
+The counterpart of the JAX package's ``JaxprExecutor``: runs a graph from
+``core.graph_capture.capture`` node by node against the shared
+MemoryEngine.  The engine's DeviceLedger does the byte-exact residency
+accounting, its DmaChannel serializes transfers, and its JobContext supplies
+every residency *decision* (when a planned event applies, when an operand
+needs a passive swap-in or a recompute, when a tensor auto-releases) -- the
+rules the discrete-event simulator runs, so a simulated and a real run of a
+plan agree by construction (peak bytes and decision trace in sync mode).
+
+The data path is real: a swapped-out storage is copied to pinned host
+memory and dropped from the device store; a swap-in copies it back; a
+recompute replays the producer node.  Compressed events go through the
+quantize/dequantize kernels (``kernels/offload_quant``): quantize, then
+device-to-host of the int8 rows and scales; host-to-device, then
+dequantize.  Both stores are keyed by **storage id**: an updated parameter
+aliases the old parameter's storage (paper §IV-B situation 2).  A view is
+rebuilt from its base at each use (the TAS names only storage owners).
+
+Two swap modes:
+  * sync  -- each swap runs inline at its trigger, on the compute stream
+             (parity with ``simulate(transfer_mode="sync")``).
+  * async -- swaps go onto one CUDA copy stream, the channel (paper
+             Fig. 4).  The transfers one operator triggers are issued
+             together after its events, same-direction runs of up to
+             ``MAX_BATCH`` as one channel hold; the copy stream first waits
+             for the compute stream, so a transfer starts when its trigger
+             op has finished.  A swap-out's device copy is retired (ledger
+             free, dropped) at the first poll point where its event has
+             completed, never before; a prefetch is awaited on the device
+             (``wait_event``) before its consumer.  The host thread runs at
+             most ``RUN_AHEAD`` operators ahead of the card, so poll points
+             see completions near the time the plan expects them.
+On a CPU device the copy "stream" is the host itself: async transfers run
+at issue and complete at once.
+
+Not ported yet (they serve the multi-job GlobalController): mid-iteration
+plan hot-swap (``request_plan``/``_maybe_hot_swap``) and
+``cancel_unstarted``.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import operator
+import time as _time
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
+
+import torch
+import torch.utils._pytree as pytree
+from torch.fx.node import map_arg
+
+from ..kernels.offload_quant import dequantize_blocked, quantize_blocked
+from .access import AccessSequence
+from .engine import (INPUT_AWAIT_PREFETCH, INPUT_PASSIVE_SWAP_IN,
+                     INPUT_RESIDENT, DeviceLedger, DmaChannel, MemoryEngine,
+                     ResidencyView)
+from .graph_capture import graph_layout
+from .plan import EventType, SchedulingPlan
+from .telemetry import TelemetryHub
+
+
+@dataclasses.dataclass
+class ExecutionStats:
+    peak_bytes: int = 0
+    wall_time_s: float = 0.0
+    swap_out_count: int = 0
+    swap_in_count: int = 0
+    passive_swap_ins: int = 0
+    recompute_count: int = 0
+    compressed_swaps: int = 0
+    op_latencies: Optional[List[float]] = None
+    stall_time_s: float = 0.0
+    # measured per-job residency timeline of THIS iteration, (t, bytes)
+    # in hub time -- filled from the TelemetryHub when one is attached
+    residency_timeline: Optional[List[tuple]] = None
+
+
+@dataclasses.dataclass
+class HostCopy:
+    """A storage parked on the host: the tensor itself (same shape and
+    strides), or its int8 rows, scales and quantize meta."""
+    data: Any
+    size: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    dtype: torch.dtype
+    compressed: bool
+
+
+class Transfer:
+    """One queued or issued copy; ``event`` marks its end on the copy
+    stream (None on a CPU device, where it completes at issue)."""
+
+    def __init__(self, key: str, fn: Callable[[], None]):
+        self.key = key
+        self.fn = fn
+        self.issued = False
+        self.event: Optional[torch.cuda.Event] = None
+
+    def done(self) -> bool:
+        return self.issued and (self.event is None or self.event.query())
+
+
+class AsyncSwapExecutor:
+    """Paper Fig. 4 on a CUDA card: one copy stream is the channel.
+    ``submit`` queues a transfer; ``flush`` issues the queue onto the
+    stream behind an event of the compute stream, each same-direction run
+    of up to ``MAX_BATCH`` as one ``channel.transfer_batch`` hold, and
+    records ``batches`` (the keys of each launch)."""
+
+    MAX_BATCH = 8
+
+    def __init__(self, channel: DmaChannel, device: torch.device):
+        self.channel = channel
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self.queue: List[Transfer] = []
+        self.inflight: Dict[str, Transfer] = {}
+        self.batches: List[List[str]] = []
+
+    @staticmethod
+    def _direction(key: str) -> str:
+        return key.split(":", 1)[0]
+
+    def submit(self, key: str, fn: Callable[[], None]) -> Transfer:
+        t = Transfer(key, fn)
+        self.queue.append(t)
+        self.inflight[key] = t
+        return t
+
+    def _issue(self, t: Transfer, ready) -> None:
+        if self.stream is None:
+            t.fn()
+        else:
+            with torch.cuda.stream(self.stream):
+                self.stream.wait_event(ready)
+                t.fn()
+                t.event = self.stream.record_event()
+        t.issued = True
+
+    def flush(self) -> None:
+        if not self.queue:
+            return
+        ready = (torch.cuda.current_stream(self.device).record_event()
+                 if self.stream is not None else None)
+        queue, self.queue = self.queue, []
+        i = 0
+        while i < len(queue):
+            d = self._direction(queue[i].key)
+            j = i + 1
+            while (j < len(queue) and j - i < self.MAX_BATCH
+                   and self._direction(queue[j].key) == d):
+                j += 1
+            batch = queue[i:j]
+            if len(batch) == 1:
+                self.channel.transfer(lambda t=batch[0]: self._issue(t, ready))
+            else:
+                self.channel.transfer_batch(
+                    [lambda t=t: self._issue(t, ready) for t in batch])
+            self.batches.append([t.key for t in batch])
+            i = j
+
+    def wait(self, key: str) -> None:
+        """Order the compute stream after transfer ``key`` (device-side;
+        the host does not block) and forget it."""
+        t = self.inflight.pop(key, None)
+        if t is None:
+            return
+        if not t.issued:
+            self.flush()
+        if t.event is not None:
+            torch.cuda.current_stream(self.device).wait_event(t.event)
+
+    def drain(self) -> None:
+        """Issue everything queued and block until every copy has landed."""
+        self.flush()
+        for t in self.inflight.values():
+            if t.event is not None:
+                t.event.synchronize()
+        self.inflight.clear()
+
+
+class FxExecutor:
+    RUN_AHEAD = 8
+
+    def __init__(self, graph_module: torch.fx.GraphModule,
+                 seq: AccessSequence,
+                 plan: Optional[SchedulingPlan] = None,
+                 accountant: Optional[DeviceLedger] = None,
+                 channel: Optional[DmaChannel] = None,
+                 async_swap: bool = False,
+                 measure_latency: bool = False,
+                 host_resident_inputs: Optional[Set[str]] = None,
+                 engine: Optional[MemoryEngine] = None,
+                 telemetry: Optional[TelemetryHub] = None):
+        self.gm = graph_module
+        self.layout = graph_layout(graph_module)
+        self.seq = seq
+        self.plan = plan
+        if len(self.layout.ops) != len(seq.operators):
+            raise ValueError(f"graph has {len(self.layout.ops)} operators, "
+                             f"sequence {len(seq.operators)}")
+        self.engine = engine or MemoryEngine(ledger=accountant,
+                                             channel=channel)
+        if telemetry is not None:
+            self.engine.attach_telemetry(telemetry)
+        self.telemetry = self.engine.telemetry
+        self.ctx = self.engine.add_job(seq, plan)
+        self.accountant = self.engine.ledger
+        self.channel = self.engine.channel
+        self.async_swap = async_swap
+        self.async_exec: Optional[AsyncSwapExecutor] = None
+        self.measure_latency = measure_latency
+        # storages whose *input* value starts on host (previous iteration's
+        # cross-iteration swap-out; paper Fig. 1(c) steady state)
+        self.host_resident_inputs: Set[str] = set(host_resident_inputs or ())
+
+        self.device: Dict[str, torch.Tensor] = {}
+        self.host: Dict[str, HostCopy] = {}
+        # async swap-outs not yet retired: storage -> (transfer,
+        # compressed, the device tensor being copied)
+        self._pending_out: Dict[str, Tuple[Transfer, bool,
+                                           torch.Tensor]] = {}
+        # decisions consult THIS iteration's value store
+        self.resident = ResidencyView(self.device)
+        self.producer: Dict[str, int] = {}
+        for i, node in enumerate(self.layout.ops):
+            for _, o in self.layout.results[node]:
+                self.producer[self.layout.tid[o]] = i
+        self.stats = ExecutionStats(
+            op_latencies=[] if measure_latency else None)
+        self._cur_idx = -1
+        self._borrowed: Set[int] = set()
+        self.dev: Optional[torch.device] = None
+        self._compute = None          # the compute stream on a CUDA card
+
+    # ------------------------------------------------------------------
+    def _st(self, tid: str) -> str:
+        return self.ctx.st(tid)
+
+    def _put_device(self, tid: str, val: torch.Tensor) -> None:
+        st = self._st(tid)
+        if st in self.device:
+            self.device[st] = val  # in-place overwrite (aliased update)
+            return
+        self.device[st] = val
+        self.accountant.alloc(self.ctx.job_id, st, self.ctx.sizes.get(
+            st, val.numel() * val.element_size()))
+
+    def _drop_storage(self, st: str) -> None:
+        if st in self.device:
+            if self.async_exec is not None:
+                # a prefetch into this storage may still be on the wire
+                self.async_exec.wait("in:" + st)
+            self.device.pop(st)
+            self.accountant.free(self.ctx.job_id, st)
+
+    def _value(self, n: torch.fx.Node) -> Any:
+        """The value of graph node ``n``: an owner's from the device store,
+        a view's rebuilt from its base."""
+        lay = self.layout
+        o = lay.owner[n]
+        if o is n:
+            st = self._st(lay.tid[n])
+            if st not in self.device:
+                raise KeyError(f"{n.name} ({st}) is not on the device")
+            return self.device[st]
+        if n.target is operator.getitem:
+            return self._value(n.args[0])[n.args[1]]
+        return n.target(*map_arg(n.args, self._value),
+                        **map_arg(n.kwargs, self._value))
+
+    def _eval(self, node: torch.fx.Node) -> Any:
+        return node.target(*map_arg(node.args, self._value),
+                           **map_arg(node.kwargs, self._value))
+
+    def _eval_into(self, node: torch.fx.Node, idx: int) -> Any:
+        """Run a compute node.  A single result that updates a storage in
+        place (an aliased parameter or moment) is written through the op's
+        ``out`` form into the device tensor it replaces, when the op reads
+        no view of that storage and no copy is in flight on it: the old
+        and the new value then never coexist, as the ledger counts them
+        (JAX's donated buffers).  Tensors given to ``run`` (not donated)
+        are never written."""
+        res = self.layout.results[node]
+        if len(res) == 1 and res[0][0] is None:
+            tid = self.layout.tid[res[0][1]]
+            st = self._st(tid)
+            old = self.device.get(st)
+            out_op = _out_overload(node.target) if st != tid else None
+            if (out_op is not None and old is not None
+                    and id(old) not in self._borrowed
+                    and st not in self._pending_out
+                    and not (self.async_exec is not None
+                             and "in:" + st in self.async_exec.inflight)
+                    and self._may_overwrite(node, idx, st)):
+                val = node.meta.get("val")
+                if (isinstance(val, torch.Tensor) and old.shape == val.shape
+                        and old.dtype == val.dtype and old.is_contiguous()):
+                    op, pos, kw = out_op
+                    bound = _bind(node, map_arg(node.args, self._value),
+                                  map_arg(node.kwargs, self._value))
+                    return op(*(bound[n] for n in pos if n in bound),
+                              **{n: bound[n] for n in kw if n in bound},
+                              out=old)
+        return self._eval(node)
+
+    def _may_overwrite(self, node: torch.fx.Node, idx: int, st: str) -> bool:
+        """The op may write storage ``st`` while reading it only if it is
+        pointwise and reads ``st`` as the very tensor it writes (no view:
+        the same element is read, then written)."""
+        if all(self._st(t) != st for t in self.seq.operators[idx].inputs):
+            return True
+        if torch.Tag.pointwise not in getattr(node.target, "tags", ()):
+            return False
+        lay = self.layout
+        return all(lay.owner[a] is a for a in node.all_input_nodes
+                   if a in lay.owner
+                   and self._st(lay.tid[lay.owner[a]]) == st)
+
+    # ------------------------------------------------------------------
+    def _host_put(self, st: str, copy: HostCopy) -> None:
+        self.host[st] = copy
+        self.ctx.host.add(st)
+        if copy.compressed:
+            self.ctx.host_compressed.add(st)
+        else:
+            self.ctx.host_compressed.discard(st)
+
+    def _pinned(self) -> bool:
+        return self.dev is not None and self.dev.type == "cuda"
+
+    def _to_host(self, val: torch.Tensor, compressed: bool) -> HostCopy:
+        """Copy a device tensor to new host memory, on the current stream
+        (pinned and without blocking on a CUDA card)."""
+        pin = self._pinned()
+
+        def host_of(t: torch.Tensor) -> torch.Tensor:
+            h = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                                    device="cpu", pin_memory=pin)
+            h.copy_(t, non_blocking=pin)
+            return h
+
+        if compressed:
+            q, s, meta = quantize_blocked(val)
+            data: Any = (host_of(q), host_of(s), meta)
+        else:
+            data = host_of(val)
+        return HostCopy(data, tuple(val.size()), tuple(val.stride()),
+                        val.dtype, compressed)
+
+    def _host_input(self, val: torch.Tensor) -> HostCopy:
+        """A host-resident input as a host copy: a host tensor as it is
+        (pinned first on a CUDA card), a device tensor copied."""
+        if val.device.type != "cpu":
+            return self._to_host(val, compressed=False)
+        if self._pinned() and not val.is_pinned():
+            val = val.pin_memory()
+        return HostCopy(val, tuple(val.size()), tuple(val.stride()),
+                        val.dtype, False)
+
+    def _host_fetch(self, st: str) -> torch.Tensor:
+        """Materialize a device value from the host store on the current
+        stream, into memory allocated on the compute stream (dequantizing a
+        compressed copy through the kernel)."""
+        rec = self.host[st]
+        pending = self._pending_out.get(st)
+        if pending is not None and pending[0].event is not None:
+            # the swap-out's copy to the host may still be on the copy
+            # stream (the device copy was released before it landed): a
+            # passive fetch on the compute stream must read after it
+            torch.cuda.current_stream(self.dev).wait_event(pending[0].event)
+        if self._compute is not None:
+            with torch.cuda.stream(self._compute):
+                dst = torch.empty_strided(rec.size, rec.stride,
+                                          dtype=rec.dtype, device=self.dev)
+            if torch.cuda.current_stream(self.dev) != self._compute:
+                # written on the copy stream: however the store drops it,
+                # the allocator must not hand it out before the write
+                dst.record_stream(torch.cuda.current_stream(self.dev))
+        else:
+            dst = torch.empty_strided(rec.size, rec.stride, dtype=rec.dtype,
+                                      device=self.dev)
+        if not rec.compressed:
+            return dst.copy_(rec.data, non_blocking=self._pinned())
+        qh, sh, meta = rec.data
+        q = qh.to(self.dev, non_blocking=self._pinned())
+        s = sh.to(self.dev, non_blocking=self._pinned())
+        if dst.is_contiguous():
+            return dequantize_blocked(q, s, meta, out=dst)
+        return dst.copy_(dequantize_blocked(q, s, meta))
+
+    def _swap_out(self, tid: str, compressed: bool = False) -> None:
+        st = self._st(tid)
+        if st not in self.device or st in self._pending_out:
+            return
+        val = self.device[st]
+        # int8 blocks would destroy an integer tensor (token ids, indices):
+        # only floating tensors take the compressed path
+        compressed = compressed and val.is_floating_point()
+
+        def do():
+            hub = self.telemetry
+            ts = hub.now() if hub is not None else 0.0
+            t0 = _time.perf_counter()
+            self._host_put(st, self._to_host(val, compressed))
+            if hub is not None:
+                hub.record_transfer(
+                    self.ctx.job_id, st, "out", self.ctx.size_of(st),
+                    _time.perf_counter() - t0, compressed=compressed, t=ts)
+
+        if self.async_exec is not None:
+            if self.async_exec.stream is not None:
+                # read on the copy stream: the allocator must not hand the
+                # block out again before that read, whenever it is freed
+                val.record_stream(self.async_exec.stream)
+            t = self.async_exec.submit("out:" + st, do)
+            self._pending_out[st] = (t, compressed, val)
+            return
+        self.channel.transfer(do)
+        self._retire_out(st, compressed)
+
+    def _retire_out(self, st: str, compressed: bool,
+                    val: Optional[torch.Tensor] = None) -> None:
+        """A swap-out's copy has landed: record, free the device copy,
+        count.  If an aliased update replaced the device value while the
+        copy was on the wire, the host copy is stale: it is dropped and
+        the new value stays."""
+        if val is not None and st in self.device \
+                and self.device[st] is not val:
+            self.host.pop(st, None)
+            self.ctx.host.discard(st)
+            self.ctx.host_compressed.discard(st)
+            return
+        self.engine.record("swap_out", self.ctx, st)
+        self._drop_storage(st)
+        self.stats.swap_out_count += 1
+        if compressed:
+            self.stats.compressed_swaps += 1
+
+    def _poll_swap_outs(self, block: bool = False) -> None:
+        """Retire every swap-out whose copy has landed; with ``block`` wait
+        for all of them first."""
+        if block and self.async_exec is not None:
+            self.async_exec.flush()
+        for st, (t, compressed, val) in list(self._pending_out.items()):
+            if block and t.event is not None:
+                t.event.synchronize()
+            if t.done():
+                del self._pending_out[st]
+                self.async_exec.inflight.pop(t.key, None)
+                self._retire_out(st, compressed, val)
+
+    def _swap_in(self, st: str, passive: bool) -> bool:
+        """Prefetch from host; returns False when there is nothing to fetch
+        (e.g. iteration-0 cold start of a cross-iteration plan)."""
+        if st in self.device:
+            return True
+        if st not in self.host:
+            return False
+        compressed = st in self.ctx.host_compressed
+
+        def do():
+            hub = self.telemetry
+            ts = hub.now() if hub is not None else 0.0
+            t0 = _time.perf_counter()
+            self._put_device(st, self._host_fetch(st))
+            if hub is not None:
+                hub.record_transfer(
+                    self.ctx.job_id, st, "in", self.ctx.size_of(st),
+                    _time.perf_counter() - t0, compressed=compressed,
+                    passive=passive, t=ts)
+
+        self.engine.record("passive_in" if passive else "swap_in",
+                           self.ctx, st)
+        if self.async_exec is not None and not passive:
+            self.async_exec.submit("in:" + st, do)
+        else:
+            t0 = _time.perf_counter()
+            self.channel.transfer(do)
+            if passive:
+                self.stats.passive_swap_ins += 1
+                stall = _time.perf_counter() - t0
+                self.stats.stall_time_s += stall
+                if self.telemetry is not None:
+                    self.telemetry.record_stall(
+                        self.ctx.job_id, self._cur_idx, stall, "passive_in")
+        self.stats.swap_in_count += 1
+        return True
+
+    def _ensure_input(self, tid: str) -> None:
+        """An operator needs ``tid`` now: prefetch-wait, passive swap-in, or
+        recompute from the producer node (engine decision rules)."""
+        st = self._st(tid)
+        key = "in:" + st
+        inflight = bool(self.async_exec is not None
+                        and key in self.async_exec.inflight)
+        action = self.ctx.input_action(self.resident, tid,
+                                       prefetch_inflight=inflight)
+        if inflight:
+            # the prefetch's copy may still be on the wire even when its
+            # destination is already in the store: order the consumer
+            # after it (on the device; the host does not block)
+            ts = _time.perf_counter()
+            self.async_exec.wait(key)
+            stall = _time.perf_counter() - ts
+            self.stats.stall_time_s += stall
+            if self.telemetry is not None:
+                self.telemetry.record_stall(
+                    self.ctx.job_id, self._cur_idx, stall, "await_prefetch")
+            if st in self.device:
+                return
+            action = self.ctx.input_action(self.resident, tid)
+        if action is INPUT_RESIDENT:
+            return
+        if action is INPUT_PASSIVE_SWAP_IN and self._swap_in(st, passive=True):
+            return
+        self._recompute(tid)
+
+    def _recompute(self, tid: str) -> None:
+        """Replay the producer node of ``tid`` and keep that result."""
+        idx = self.producer.get(tid)
+        if idx is None:
+            raise KeyError(f"tensor {tid} unavailable and has no producer")
+        node = self.layout.ops[idx]
+        for t in self.seq.operators[idx].inputs:
+            self._ensure_input(t)
+        outs = self._eval(node)
+        for k, o in self.layout.results[node]:
+            if self.layout.tid[o] == tid:
+                self._put_device(tid, outs if k is None else outs[k])
+        self.stats.recompute_count += 1
+
+    # ------------------------------------------------------------------
+    def run(self, *args: Any) -> List[Any]:
+        """One iteration on ``args`` (the step's pytrees of tensors).
+        Returns the flat list of output leaves: a storage left on the
+        device is returned as its device tensor, one parked on the host as
+        a host tensor (dequantized if its copy was compressed), so the next
+        iteration can take it as a host-resident input."""
+        flat = pytree.tree_leaves(args)
+        # the caller keeps these: never written in place
+        self._borrowed = {id(v) for v in flat}
+        return self._run(flat)
+
+    def run_donated(self, args: List[Any]) -> List[Any]:
+        """``run`` on the pytrees in the list ``args``, which it empties:
+        the executor then holds the only references to the inputs, so a
+        device copy the plan frees (an input swapped out, an old parameter
+        replaced by its update) returns to the allocator as the ledger says
+        (JAX's donated buffers).  The caller must keep no other reference."""
+        flat = pytree.tree_leaves(args)
+        args.clear()
+        return self._run(flat)
+
+    def _run(self, flat: List[Any]) -> List[Any]:
+        t_start = _time.perf_counter()
+        res_start = 0
+        if self.telemetry is not None:
+            res_start = len(
+                self.telemetry.residency.get(self.ctx.job_id, ()))
+        lay = self.layout
+        if len(flat) != len(lay.inputs):
+            raise ValueError(f"expected {len(lay.inputs)} leaves, got "
+                             f"{len(flat)}")
+        stores = [(lay.tid[n], self._st(lay.tid[n]), v)
+                  for n, v in zip(lay.inputs, flat)]
+        # the card when any input is on one (a storage parked on the host by
+        # the previous iteration may come first), else the inputs' device
+        devices = [v.device for _, st, v in stores
+                   if st not in self.host_resident_inputs] or [flat[0].device]
+        self.dev = next((d for d in devices if d.type == "cuda"), devices[0])
+        if self.dev.type == "cuda":
+            self._compute = torch.cuda.current_stream(self.dev)
+        if self.async_swap:
+            self.async_exec = AsyncSwapExecutor(self.channel, self.dev)
+        # absorb host values preloaded between iterations
+        self.ctx.host |= set(self.host)
+        for tid, st, val in stores:
+            if st in self.host_resident_inputs:
+                # previous iteration parked this storage on host; it enters
+                # the device only via its planned swap-in (or passively)
+                self._host_put(st, self._host_input(val))
+            else:
+                self._put_device(tid, val if val.device == self.dev
+                                 else val.to(self.dev))
+        # drop this frame's references: the stores now hold the inputs
+        stores.clear()
+        flat.clear()
+        val = None
+        for n in lay.consts:
+            self._put_device(lay.tid[n], getattr(self.gm, n.target))
+
+        measure = self.measure_latency or self.telemetry is not None
+        if self.telemetry is not None:
+            self.telemetry.begin_buffering()
+        throttle = (collections.deque() if self.async_exec is not None
+                    and self._compute is not None else None)
+        for idx, node in enumerate(lay.ops):
+            self._cur_idx = idx
+            op = self.seq.operators[idx]
+            if throttle is not None and len(throttle) >= self.RUN_AHEAD:
+                throttle.popleft().synchronize()
+            # retire any swap-out whose copy landed while we computed
+            if self._pending_out:
+                self._poll_swap_outs()
+            t0 = _time.perf_counter()
+            for tid in op.inputs:
+                self._ensure_input(tid)
+            t1 = _time.perf_counter()
+            outs = self._eval_into(node, idx)
+            if measure:
+                if self._compute is not None:
+                    self._compute.synchronize()
+                t2 = _time.perf_counter()
+                if self.measure_latency:
+                    self.stats.op_latencies.append(t2 - t0)
+                if self.telemetry is not None:
+                    # compute-only latency: input-ensure time is reported
+                    # separately as stall records
+                    self.telemetry.record_op(
+                        self.ctx.job_id, idx, t2 - t1, prim=op.name,
+                        flops=op.flops, bytes_accessed=op.bytes_accessed)
+            for k, o in lay.results[node]:
+                self._put_device(lay.tid[o], outs if k is None else outs[k])
+            del outs
+
+            # releases: plan overrides, then free-at-last-use (engine rule)
+            for tid in op.inputs + op.outputs:
+                if self.ctx.should_auto_release(tid, idx):
+                    self.engine.record("release", self.ctx, self._st(tid))
+                    self._drop_storage(self._st(tid))
+
+            # plan events triggered by this op (engine skip rules)
+            for ev in self.ctx.events_triggered_by(idx):
+                st = self._st(ev.tensor_id)
+                if not self.ctx.event_applies(self.resident, ev):
+                    continue
+                if ev.event_type is EventType.SWAP_OUT:
+                    self._swap_out(ev.tensor_id, compressed=ev.compressed)
+                elif ev.event_type is EventType.SWAP_IN:
+                    self._swap_in(st, passive=False)
+                elif ev.event_type is EventType.RELEASE:
+                    self.engine.record("release", self.ctx, st)
+                    self._drop_storage(st)
+                elif ev.event_type is EventType.RECOMPUTE:
+                    self.engine.record("recompute", self.ctx, st)
+                    self._recompute(ev.tensor_id)
+            if self.async_exec is not None:
+                self.async_exec.flush()
+            if throttle is not None:
+                throttle.append(self._compute.record_event())
+            if self.telemetry is not None:
+                self.telemetry.flush()
+
+        if self.async_exec is not None:
+            self.async_exec.drain()
+        self._poll_swap_outs(block=True)
+        if self.telemetry is not None:
+            self.telemetry.end_buffering()
+        # fetching outputs back to Python is harness work, not part of the
+        # modeled iteration -- pause the trace (and telemetry) for it
+        if self.engine.trace is not None:
+            self.engine.trace.paused = True
+        if self.telemetry is not None:
+            self.telemetry.paused = True
+        outs = [self._output(v) for v in lay.out_leaves]
+        if self.engine.trace is not None:
+            self.engine.trace.paused = False
+        if self.telemetry is not None:
+            self.telemetry.paused = False
+            self.stats.residency_timeline = [
+                (r.t, r.resident_bytes)
+                for r in self.telemetry.residency.get(
+                    self.ctx.job_id, [])[res_start:]]
+            self.telemetry.end_iteration(self.ctx.job_id)
+        if self._compute is not None:
+            self._compute.synchronize()
+        self.stats.wall_time_s = _time.perf_counter() - t_start
+        self.stats.peak_bytes = self.accountant.peak
+        return outs
+
+    def _output(self, v: Any) -> Any:
+        if not isinstance(v, torch.fx.Node):
+            return v
+        o = self.layout.owner[v]
+        st = self._st(self.layout.tid[o])
+        if st not in self.device and st in self.host and o is v:
+            rec = self.host[st]
+            if not rec.compressed:
+                return rec.data
+            # dequantize on the device, then park the result on the host
+            return self._to_host(self._host_fetch(st), compressed=False).data
+        if st not in self.device:
+            self._ensure_input(self.layout.tid[o])
+        return self._value(v)
+
+    # ------------------------------------------------------------------
+    def ending_host_storages(self) -> Set[str]:
+        """Storages left parked on host at iteration end (their device copy
+        dropped) -- the next iteration's ``host_resident_inputs``."""
+        return {st for st in self.host if st not in self.device}
+
+    def close(self) -> None:
+        if self.async_exec is not None:
+            self.async_exec.drain()
+
+
+_OUT_FORMS: Dict[Any, Any] = {}
+
+
+def _out_overload(target):
+    """``(overload, positional names, keyword names)`` of the ``out`` form
+    of an aten op whose arguments are a subset of the op's, with the same
+    types (the output's dtype comes from ``out``); None if it has none."""
+    if target in _OUT_FORMS:
+        return _OUT_FORMS[target]
+    found = None
+    sch = getattr(target, "_schema", None)
+    packet = getattr(target, "overloadpacket", None)
+    if sch is not None and packet is not None:
+        types = {a.name: str(a.type) for a in sch.arguments}
+        for name in packet.overloads():
+            cand = getattr(packet, name)._schema
+            args = [a for a in cand.arguments if not a.is_out]
+            outs = [a for a in cand.arguments if a.is_out]
+            if (len(outs) == 1 and outs[0].name == "out"
+                    and all(types.get(a.name) == str(a.type)
+                            for a in args)):
+                found = (getattr(packet, name),
+                         [a.name for a in args if not a.kwarg_only],
+                         [a.name for a in args if a.kwarg_only])
+                break
+    _OUT_FORMS[target] = found
+    return found
+
+
+def _bind(node: torch.fx.Node, args, kwargs) -> Dict[str, Any]:
+    """The node's arguments by schema name."""
+    names = [a.name for a in node.target._schema.arguments]
+    bound = dict(zip(names, args))
+    bound.update(kwargs)
+    return bound
+
+
+def reference_outputs(graph_module: torch.fx.GraphModule,
+                      *args: Any) -> List[Any]:
+    """The captured graph run as it is, unscheduled: its flat outputs."""
+    return pytree.tree_leaves(graph_module(*args))

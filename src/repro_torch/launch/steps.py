@@ -6,6 +6,11 @@
   AdamW with global-norm clipping.  The parameters of the module and the
   optimizer state are updated IN PLACE and returned (the JAX step donates
   them for the same effect).
+* ``build_functional_train_step(api, tcfg)`` returns the same step as a
+  pure function over a flat parameter dict:
+  ``(params, opt_state, batch) -> (new_params, new_opt_state, metrics)``
+  with new tensors out (``adamw_step``), the form TENSILE captures
+  (``core.graph_capture.capture_train_step``) and executes.
 * ``build_prefill_step(api)`` returns ``(params, batch) -> logits``.
 * ``build_serve_step(api)`` returns
   ``(params, cache, batch, index) -> (logits, cache)``; the cache is
@@ -13,8 +18,9 @@
 
 PyTorch runs eagerly, so there is no jit; prefill and decode run under
 ``torch.inference_mode()``.  The port has no mesh, so there are no
-sharding rules, and the TENSILE remat policies, host-offloaded optimizer
-state and int8 gradient compression come with the training slice.
+sharding rules; the JAX package's remat policies from TENSILE decisions,
+host-offloaded optimizer state and int8 gradient compression are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..optim.adam import AdamState, adamw_init, adamw_update, global_norm
+from ..optim.adam import (AdamState, adamw_init, adamw_step, adamw_update,
+                          global_norm)
 
 
 @dataclasses.dataclass
@@ -87,6 +94,54 @@ def build_train_step(api, tcfg: Optional[TrainStepConfig] = None):
             grad_clip_norm=tcfg.grad_clip_norm)
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}
         return params, new_opt, metrics
+
+    return train_step
+
+
+class _LossOf(torch.nn.Module):
+    """``api.loss`` as a module over ``lm``'s parameters, so
+    ``torch.func.functional_call`` can run it on given tensors."""
+
+    def __init__(self, api, lm: torch.nn.Module):
+        super().__init__()
+        self.api = api
+        self.lm = lm
+
+    def forward(self, batch):
+        return self.api.loss(self.lm, batch)
+
+
+def build_functional_train_step(api, tcfg: Optional[TrainStepConfig] = None):
+    """The train step as a pure function of ``(params, opt_state, batch)``
+    with ``params`` a flat dict of tensors keyed like
+    ``dict(model.named_parameters())``: loss and gradients by autograd on
+    detached copies of the parameters, then ``adamw_step``.  Nothing it is
+    given is written; it returns new parameters, a new optimizer state and
+    ``{"loss", "grad_norm"}``."""
+    tcfg = tcfg or TrainStepConfig()
+    if tcfg.microbatches != 1 or tcfg.grad_compression is not None \
+            or tcfg.remat_policy is not None:
+        raise NotImplementedError(
+            "the functional train step takes one microbatch, no gradient "
+            "compression and no remat policy")
+    from ..models.transformer import TransformerLM
+    shell = _LossOf(api, TransformerLM(api.cfg, device="meta"))
+
+    def train_step(params: Dict[str, torch.Tensor], opt_state: AdamState,
+                   batch):
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        with torch.enable_grad():
+            loss = torch.func.functional_call(
+                shell, {"lm." + k: v for k, v in leaves.items()}, (batch,))
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        new_params, new_opt = adamw_step(
+            params, grads, opt_state, lr=tcfg.learning_rate,
+            weight_decay=tcfg.weight_decay,
+            grad_clip_norm=tcfg.grad_clip_norm)
+        return new_params, new_opt, {"loss": loss.detach(),
+                                     "grad_norm": global_norm(grads)}
 
     return train_step
 

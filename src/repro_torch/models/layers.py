@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 Tree = Dict[str, Union[torch.Tensor, "Tree"]]
@@ -213,7 +214,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq).  Rotates the
     two split halves of the head dim, not interleaved pairs."""
-    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    if is_fake(x):
+        # traced on fake tensors: a constant of this trace (``torch.tensor``
+        # is how a tracer lifts data into the graph), never cached
+        freqs = torch.tensor(rope_freqs(x.shape[-1], float(theta)),
+                             device=x.device)
+    else:
+        freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
     angles = positions[..., :, None].float() * freqs          # (...,S,half)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]

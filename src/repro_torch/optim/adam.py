@@ -2,40 +2,73 @@
 bias correction, decoupled weight decay, global-norm clipping and optional
 fp32 master copies of bf16 parameters.
 
-Parameters, gradients and moments are flat dicts of tensors keyed by the
-parameter's dotted name (``dict(model.named_parameters())``).  Unlike the
-pure JAX functions, ``adamw_update`` and ``sgd_update`` write the new
-parameters, moments and master copies IN PLACE (the JAX train step donates
-those buffers for the same effect) and return them.  The reference's
-error-feedback residual (``ef``, for int8 grad compression) is not ported
-yet.
+Parameters, gradients and moments are pytrees of tensors: the train step
+passes flat dicts keyed by the parameter's dotted name
+(``dict(model.named_parameters())``), the MLP workload a list of dicts.
+``adamw_update`` and ``sgd_update`` write the new parameters, moments and
+master copies IN PLACE (the JAX train step donates those buffers for the
+same effect) and return them.  ``adamw_step`` is the pure form, as the JAX
+``adamw_update``: same arithmetic, new tensors out, so a captured step has
+outputs that alias its inputs by position.  The reference's error-feedback
+residual (``ef``, for int8 grad compression) is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Any, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 Tree = Mapping[str, torch.Tensor]
 
 
 class AdamState(NamedTuple):
     step: torch.Tensor               # int32 scalar
-    mu: Dict[str, torch.Tensor]      # 1st moments
-    nu: Dict[str, torch.Tensor]      # 2nd moments
-    master: Union[Dict[str, torch.Tensor], tuple]   # fp32 masters or ()
+    mu: Any                          # 1st moments, params' structure
+    nu: Any                          # 2nd moments
+    master: Any                      # fp32 masters or ()
 
 
-def adamw_init(params: Tree, *, use_master: bool = False) -> AdamState:
-    device = next(iter(params.values())).device if params else None
-    mu = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-          for k, p in params.items()}
-    nu = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-          for k, p in params.items()}
-    master = ({k: p.detach().float().clone() for k, p in params.items()}
+def adamw_init(params: Any, *, use_master: bool = False) -> AdamState:
+    leaves = pytree.tree_leaves(params)
+    device = leaves[0].device if leaves else None
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    mu = pytree.tree_map(zeros, params)
+    nu = pytree.tree_map(zeros, params)
+    master = (pytree.tree_map(lambda p: p.detach().float().clone(), params)
               if use_master else ())
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
                      mu=mu, nu=nu, master=master)
+
+
+def _prologue(grads: Any, state: AdamState, b1: float, b2: float,
+              grad_clip_norm: Optional[float]):
+    """The advanced step, the clip scale (or None) and the two bias
+    corrections."""
+    step = state.step + 1
+    stepf = step.float()
+    scale = None
+    if grad_clip_norm is not None:
+        gnorm = global_norm(grads)
+        scale = torch.clamp(grad_clip_norm / (gnorm + 1e-12), max=1.0)
+    return step, scale, 1.0 - b1 ** stepf, 1.0 - b2 ** stepf
+
+
+def _leaf(p, g, m, v, pm, scale, bc1, bc2, lr, b1, b2, eps, weight_decay):
+    """One leaf's AdamW arithmetic in fp32: ``(new, m32, v32)``, with
+    ``pm`` the fp32 master copy of ``p`` or None."""
+    g32 = g.float()
+    if scale is not None:
+        g32 = g32 * scale
+    m32 = b1 * m.float() + (1 - b1) * g32
+    v32 = b2 * v.float() + (1 - b2) * g32 * g32
+    base = (p if pm is None else pm).float()
+    new = base - lr * ((m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
+                       + weight_decay * base)
+    return new, m32, v32
 
 
 @torch.no_grad()
@@ -47,25 +80,13 @@ def adamw_update(params: Tree, grads: Tree, state: AdamState, *,
     """One AdamW step.  Updates ``params``, ``state.mu``, ``state.nu`` and
     ``state.master`` in place; returns ``(params, new_state)`` with the
     step advanced."""
-    step = state.step + 1
-    stepf = step.float()
-    scale = None
-    if grad_clip_norm is not None:
-        gnorm = global_norm(grads)
-        scale = torch.clamp(grad_clip_norm / (gnorm + 1e-12), max=1.0)
-    bc1 = 1.0 - b1 ** stepf
-    bc2 = 1.0 - b2 ** stepf
+    step, scale, bc1, bc2 = _prologue(grads, state, b1, b2, grad_clip_norm)
     use_master = state.master != ()
     for name, p in params.items():
-        g32 = grads[name].float()
-        if scale is not None:
-            g32 = g32 * scale
         m, v = state.mu[name], state.nu[name]
-        m32 = b1 * m.float() + (1 - b1) * g32
-        v32 = b2 * v.float() + (1 - b2) * g32 * g32
-        base = (state.master[name] if use_master else p).float()
-        new = base - lr * ((m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
-                           + weight_decay * base)
+        new, m32, v32 = _leaf(p, grads[name], m, v,
+                              state.master[name] if use_master else None,
+                              scale, bc1, bc2, lr, b1, b2, eps, weight_decay)
         m.copy_(m32)
         v.copy_(v32)
         if use_master:
@@ -74,8 +95,38 @@ def adamw_update(params: Tree, grads: Tree, state: AdamState, *,
     return params, state._replace(step=step)
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    leaves = list(tree.values())
+def adamw_step(params: Any, grads: Any, state: AdamState, *,
+               lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8, weight_decay: float = 0.0,
+               grad_clip_norm: Optional[float] = None,
+               ) -> Tuple[Any, AdamState]:
+    """One AdamW step as a pure function: the arithmetic of
+    ``adamw_update``, returning new parameter, moment and master tensors
+    in the structure of ``params`` and leaving the inputs untouched."""
+    step, scale, bc1, bc2 = _prologue(grads, state, b1, b2, grad_clip_norm)
+    use_master = state.master != ()
+    leaves_p, spec = pytree.tree_flatten(params)
+    leaves_pm = (pytree.tree_leaves(state.master) if use_master
+                 else [None] * len(leaves_p))
+    new_p, new_m, new_v, new_pm = [], [], [], []
+    for p, g, m, v, pm in zip(leaves_p, pytree.tree_leaves(grads),
+                              pytree.tree_leaves(state.mu),
+                              pytree.tree_leaves(state.nu), leaves_pm):
+        new, m32, v32 = _leaf(p, g, m, v, pm, scale, bc1, bc2, lr, b1, b2,
+                              eps, weight_decay)
+        new_m.append(m32.to(m.dtype))
+        new_v.append(v32.to(v.dtype))
+        if use_master:
+            new_pm.append(new)
+        new_p.append(new.to(p.dtype))
+    master = pytree.tree_unflatten(new_pm, spec) if use_master else ()
+    return pytree.tree_unflatten(new_p, spec), AdamState(
+        step=step, mu=pytree.tree_unflatten(new_m, spec),
+        nu=pytree.tree_unflatten(new_v, spec), master=master)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    leaves = pytree.tree_leaves(tree)
     if not leaves:
         return torch.zeros(())
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))

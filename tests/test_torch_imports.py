@@ -14,6 +14,14 @@ from repro_torch.configs import get_config
 from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
+# the TENSILE loop's modules: each must be among those walked and checked
+TENSILE_MODULES = [f"repro_torch.{m}" for m in (
+    "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
+    "core.pass_state", "core.engine", "core.swap_planner",
+    "core.recompute_planner", "core.passes", "core.scheduler",
+    "core.simulator", "core.baselines", "core.cost_model",
+    "core.graph_capture", "core.executor", "kernels.offload_quant",
+    "service.workloads", "optim.adam")]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -27,9 +35,10 @@ def test_port_and_chip_smoke_import_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
-    """)
+        missing = sorted(set(TENSILE) - set(names))
+        print(len(names), bad, missing)
+        sys.exit(1 if bad or missing or len(names) < 20 else 0)
+    """).replace("TENSILE", repr(TENSILE_MODULES))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -63,3 +72,12 @@ def test_serving_engine_without_device_raises_without_cuda(no_cuda):
     from repro_torch.serving import ServingEngine
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine()
+
+
+def test_tensile_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.core import calibrate_cuda
+    from repro_torch.service.workloads import make_mlp
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mlp()
+    with pytest.raises(RuntimeError):
+        calibrate_cuda()
