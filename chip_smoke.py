@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives
-its two paths at the full width of TinyLlama-1.1B (bf16, random weights
-from seed 0):
+its paths at the full width of TinyLlama-1.1B, then of Mamba-2 780M (bf16,
+random weights from seed 0):
 
 1. serving: the KV gather/scatter kernel bit-exact against its plain
    version at the serving path's shapes, the pinned host link, the
@@ -20,7 +20,16 @@ from seed 0):
    path; the reduced fp32 forward card-vs-CPU; 4 train steps (B 4,
    S 1024) through ``build_train_step``, whose loss must fall; the reduced
    fp32 train step card-vs-CPU; and the kernel's times.
-3. TENSILE, the paper's own loop: the quantize/dequantize kernels
+3. Mamba-2 780M, the SSM slice: the SSD intra-chunk kernel against its
+   plain version at the reference's sweep, a ragged chunk and the
+   prefill's shape (``check_ssd``); the serve pair as above, whose
+   budgeted run swaps the positionless SSM state through both KV kernels
+   (``serve_ssm``); the decode step's profile; the prefill (B 4, S 2048)
+   through the kernel, once per layer, against the plain chunked path
+   (``prefill_ssm``); 4 train steps (B 4, S 1024) on the plain path
+   (``train_ssm``); reduced fp32 decode, forward and train step
+   card-vs-CPU; and the kernel's times (``time_ssd``).
+4. TENSILE, the paper's own loop: the quantize/dequantize kernels
    bit-exact against their plain versions (``check_quant``); the
    quickstart MLP captured, planned and executed, its executor peak and
    decision trace equal to the simulator's (``tensile_mlp``); then the
@@ -73,12 +82,14 @@ from repro_torch.core.graph_capture import graph_layout  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_block_copy as kbc  # noqa: E402
 from repro_torch.kernels import offload_quant as oq  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels.build import build_all  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      kv_block_gather_ref,
                                      dequantize_blocked_ref,
                                      kv_block_scatter_ref,
-                                     quantize_blocked_ref)
+                                     quantize_blocked_ref,
+                                     ssd_intra_chunk_ref)
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
                                      build_functional_train_step,
                                      build_prefill_step, build_train_step,
@@ -87,6 +98,7 @@ from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.models.ssm import mamba2_block  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.optim.adam import adamw_init  # noqa: E402
 from repro_torch.service.workloads import make_mlp, mlp_numpy  # noqa: E402
@@ -95,7 +107,9 @@ from repro_torch.serving import ServingEngine, make_trace  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same sheet
+FP32_FLOPS_PER_S = 67e12       # fp32 outside the tensor cores, same sheet
 ARCH = "tinyllama-1.1b"
+SSM_ARCH = "mamba2-780m"
 MAX_SEQUENCES, PROMPT_LEN, GEN_LEN, N_REQUESTS = 4, 16, 16, 8
 MAX_LEN = PROMPT_LEN + GEN_LEN
 PREFILL_B, PREFILL_S = 4, 2048          # the model's published context
@@ -103,11 +117,13 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 4
 SOURCE = "src/repro_torch/csrc/kv_block_copy.cu"
 FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 QUANT_SOURCE = "src/repro_torch/csrc/offload_quant.cu"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 REPLACES = {"kv_block_gather": "src/repro/kernels/kv_block_copy.py:34",
             "kv_block_scatter": "src/repro/kernels/kv_block_copy.py:58",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:77",
             "quantize_blocked": "src/repro/kernels/offload_quant.py:43",
-            "dequantize_blocked": "src/repro/kernels/offload_quant.py:60"}
+            "dequantize_blocked": "src/repro/kernels/offload_quant.py:60",
+            "ssd_intra_chunk_fwd": "src/repro/kernels/ssd_scan.py:47"}
 # quantize/dequantize sweep: ragged lengths (one element, a row less one, a
 # row and one, the reference's (37, 129)) in each input dtype, and 64 MiB
 QUANT_SHAPES = [(1,), (511,), (513,), (37, 129)]
@@ -170,6 +186,28 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 per layer, both paths on the same hidden state: a few bf16 ulps
 # (2^-8 of a value each).  fp32 end to end: summation order only.
 PREFILL_REL_TOL = {"bf16": 0.5, "bf16_layer": 0.02, "fp32": 1e-3}
+# (B, NC, Q, H, P, N, x dtype): the reference's sweep (tests/test_kernels.py:
+# 51-55), a ragged chunk, and Mamba-2 780M's prefill (B 4 x S 2048 in chunks
+# of 256; 48 heads of 64, state 128) with bf16 x as the path gives it
+SSD_SWEEP = [(2, 3, 64, 4, 16, 32, torch.float32),
+             (1, 2, 128, 2, 64, 128, torch.float32),
+             (1, 5, 32, 8, 64, 16, torch.float32),
+             (1, 1, 200, 4, 64, 128, torch.float32)]
+SSD_PREFILL = (PREFILL_B, PREFILL_S // 256, 256, 48, 64, 128, torch.bfloat16)
+SSD_TOL = 1e-4                 # rtol = atol, tests/test_kernels.py:66-68
+# Kernel vs plain chunked SSD prefill of Mamba-2 780M, as max |diff| / max
+# |reference|; PERF.md section 2 gives the measurements behind each.  On the
+# H100 every reading is 0 (both paths round the prefix sums alike and the
+# plain path's products accumulate in the kernel's order), so the limits
+# come from the kernel's own 1e-4: in fp32 end to end, that 1e-4; per bf16
+# layer, two bf16 ulps of the largest value (a 1e-4 error in y flips at
+# most one ulp of the mixer's output, and the layer's output rounds once
+# more); end to end in bf16, the flash limit, since flipped ulps grow
+# through the random layers
+SSM_PREFILL_REL_TOL = {"bf16": 0.5, "bf16_layer": 2.0 ** -7, "fp32": SSD_TOL}
+# the device kernels each prefill kernel's wrapper launches, by name
+KERNEL_NAMES = {fa.flash_attention_fwd: ("flash_fwd",),
+                ss.ssd_intra_chunk_fwd: ("ssd_y", "ssd_state")}
 
 
 def log(msg: str) -> None:
@@ -197,7 +235,10 @@ def events_ms(fn, reps: int, inner: int = 1) -> float:
 
 def device_ms(fn, reps: int = 20) -> float:
     """Mean device time per call of ``fn``: every kernel and copy it
-    issues, summed from a ``torch.profiler`` trace of ``reps`` calls."""
+    issues, summed from a ``torch.profiler`` trace of ``reps`` calls.
+    Raises if the trace holds no device time.  (Such traces of the
+    millisecond-long prefill kernels held fewer launches than were made,
+    so those kernels take their device time from the prefill's profile.)"""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -206,8 +247,11 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("the profiler trace holds no device time")
+    return us / reps / 1e3
 
 
 def wall_s(fn, reps: int) -> float:
@@ -374,11 +418,11 @@ def time_kernels(n: int, w: int, dtype, k: int) -> dict:
     return res
 
 
-def check_decode_on_small_input() -> None:
-    """Reduced TinyLlama in fp32: the card's decode steps agree with the
+def check_decode_on_small_input(arch: str = ARCH) -> None:
+    """Reduced ``arch`` in fp32: the card's decode steps agree with the
     CPU's on the same weights, tokens and cache (atol = rtol = 1e-4, the
     port's CPU parity tolerance; matmuls run in full fp32, TF32 is off)."""
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     cpu, card = small_models(cfg)
     api_c, api_g = get_model(cfg, "cpu"), get_model(cfg, "cuda")
     cache_c, cache_g = api_c.init_cache(2, 8), api_g.init_cache(2, 8)
@@ -392,7 +436,8 @@ def check_decode_on_small_input() -> None:
             raise AssertionError(
                 f"decode step {i}: card and CPU differ by "
                 f"{max_abs_err(lg.cpu(), lc)}")
-    log("[check] reduced fp32 decode: card == CPU within 1e-4 over 6 steps")
+    log(f"[check] reduced fp32 {arch} decode: card == CPU within 1e-4 over "
+        f"6 steps")
 
 
 def small_models(cfg):
@@ -406,9 +451,9 @@ def small_models(cfg):
     return cpu, card
 
 
-def serve(profile: MachineProfile) -> dict:
+def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
     t0 = time.perf_counter()
-    eng = ServingEngine(ARCH, reduced=False, max_sequences=MAX_SEQUENCES,
+    eng = ServingEngine(arch, reduced=False, max_sequences=MAX_SEQUENCES,
                         max_len=MAX_LEN, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() * p.element_size()
@@ -512,9 +557,11 @@ def serve(profile: MachineProfile) -> dict:
     return {"eng": eng, "runs": runs}
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, names=()) -> dict:
     """Device-busy ms, the device's idle share and the five kernels with
-    the most device time over one call of ``fn``, from ``torch.profiler``."""
+    the most device time over one call of ``fn``, from ``torch.profiler``;
+    for each of ``names``, the count and device ms of the kernels whose
+    name holds it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -529,10 +576,13 @@ def profile_window(fn) -> dict:
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    named = {n: [sum(n in e.name for e in kernels),
+                 sum(e.time_range.elapsed_us() for e in kernels
+                     if n in e.name) / 1e3] for n in names}
     return {"wall_ms": wall_ms, "device_kernels": len(kernels),
             "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
-            "top_kernels_ms": dict(by_name.most_common(5))}
+            "top_kernels_ms": dict(by_name.most_common(5)), "named": named}
 
 
 def profile_decode(eng, steps: int = 4) -> dict:
@@ -609,8 +659,8 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
 
 def time_flash() -> dict:
     """Times at the prefill's attention shape: the kernel (CUDA events over
-    back-to-back calls of the wrapper, and its device time from a profiler
-    trace), its plain version, and ``scaled_dot_product_attention`` (the
+    back-to-back calls of the wrapper; its device time comes from the
+    prefill's profile), its plain version, and ``scaled_dot_product_attention`` (the
     library yardstick, on its (B,H,S,D) layout with the kv heads expanded,
     prepared outside the timed call; never called by the port).  The bound
     counts the two products over the unmasked pairs at the bf16 peak
@@ -630,8 +680,6 @@ def time_flash() -> dict:
             "ms": events_ms(lambda: fa.flash_attention_fwd(q, k, v,
                                                            causal=causal),
                             10, inner=5),
-            "device_ms": device_ms(lambda: fa.flash_attention_fwd(
-                q, k, v, causal=causal), reps=5),
             "plain_ms": events_ms(lambda: flash_attention_ref(
                 q, k, v, causal=causal), 5),
             "library_ms": events_ms(
@@ -649,12 +697,116 @@ def time_flash() -> dict:
     return res
 
 
-def prefill(eng) -> dict:
-    """Full-width prefill through ``build_prefill_step`` with the flash
-    kernel: B x S tokens from numpy seed 0 on the serve phase's weights.
-    Gates the logits' shape and finiteness, one kernel launch per layer per
-    forward, and agreement with the same forward on the plain attention
-    path (``attend_full``, since S <= 2 * attn_chunk)."""
+def _attention_mix(p, h, pos, cfg):
+    return attention_block(p["attn"], h, pos, cfg=cfg)
+
+
+def _mamba_mix(p, h, pos, cfg):
+    return mamba2_block(p["mamba"], h, cfg)
+
+
+def ssd_inputs(shape, seed: int) -> list:
+    """The reference test's draws (tests/test_kernels.py:57-61), from
+    numpy: normal x, B and C, softplus-normal dt, minus softplus-normal dA;
+    on the card, x in the shape's dtype."""
+    b, nc, q, h, p, n, dtype = shape
+    rng = np.random.default_rng(seed)
+
+    def softplus(a):
+        return np.log1p(np.exp(a)).astype(np.float32)
+
+    arrays = (rng.standard_normal((b, nc, q, h, p), dtype=np.float32),
+              softplus(rng.standard_normal((b, nc, q, h), dtype=np.float32)),
+              -softplus(rng.standard_normal((b, nc, q, h), dtype=np.float32)),
+              rng.standard_normal((b, nc, q, n), dtype=np.float32),
+              rng.standard_normal((b, nc, q, n), dtype=np.float32))
+    out = [torch.from_numpy(a).cuda() for a in arrays]
+    out[0] = out[0].to(dtype)
+    return out
+
+
+def check_ssd() -> dict:
+    """The SSD kernel against ``ssd_intra_chunk_ref`` on the card at the
+    reference's sweep, a ragged chunk and the prefill's shape, inputs from
+    numpy seed 0, within rtol = atol = SSD_TOL on both outputs.  Returns
+    per shape the largest absolute difference and the largest share of the
+    tolerance, |diff| / (atol + rtol |ref|) (at most 1 when it passes)."""
+    errs = {}
+    for shape in SSD_SWEEP + [SSD_PREFILL]:
+        args = ssd_inputs(shape, 0)
+        with torch.inference_mode():
+            got = ss.ssd_intra_chunk_fwd(*args)
+            want = ssd_intra_chunk_ref(*args)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        share = max(float(((a - b).abs() / (SSD_TOL + SSD_TOL * b.abs()))
+                           .max()) for a, b in zip(got, want))
+        errs[shape] = {"max_abs_err": err, "tolerance_share": share,
+                       "max_abs_ref": max(float(b.abs().max())
+                                          for b in want)}
+        log(f"[ssd] {shape[:6]} {shape[6]}: max_abs_err {err:.3e}, "
+            f"tolerance share {share:.3f}, max |ref| "
+            f"{errs[shape]['max_abs_ref']:.1f}")
+        if any(a.shape != b.shape or a.dtype != torch.float32
+               or not torch.allclose(a, b, rtol=SSD_TOL, atol=SSD_TOL)
+               for a, b in zip(got, want)):
+            raise AssertionError(f"ssd kernel differs at {shape}: {err}")
+        del args, got, want
+    return errs
+
+
+def ssd_work(shape) -> tuple:
+    """(FLOP, bytes, FLOP of the full square) of the intra-chunk function
+    at ``shape``.  The FLOP it needs: C.B^T over the causal pairs j <= i
+    once per (batch, chunk), since the heads share B and C; the weighted
+    sum over the same pairs and the state product per head.  The bytes:
+    each input read and each output written once.  The full square is the
+    Q x Q tile per head that the Pallas grid computes."""
+    b, nc, q, h, p, n, dtype = shape
+    pairs = q * (q + 1) // 2
+    flops = 2 * b * nc * (pairs * n + h * (pairs * p + q * n * p))
+    square = 2 * b * nc * (q * q * n + h * (q * q * p + q * n * p))
+    x_bytes = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (b * nc * q * h * p * (x_bytes + 4) + 2 * b * nc * q * h * 4
+              + 2 * b * nc * q * n * 4 + b * nc * h * p * n * 4)
+    return flops, nbytes, square
+
+
+def time_ssd() -> dict:
+    """Times at the prefill's SSD shape: the kernel (CUDA events over
+    back-to-back calls of the wrapper; its device time comes from the
+    prefill's profile) and its plain version.  No one PyTorch call computes this
+    function, so there is no library time.  The bound is the larger of the
+    FLOP over the fp32 peak (the 1e-4 tolerance keeps the arithmetic in
+    fp32) and the bytes over the HBM rate (``ssd_work``)."""
+    args = ssd_inputs(SSD_PREFILL, 1)
+    flops, nbytes, square = ssd_work(SSD_PREFILL)
+    bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        res = {"ms": events_ms(lambda: ss.ssd_intra_chunk_fwd(*args), 10,
+                               inner=5),
+               "plain_ms": events_ms(lambda: ssd_intra_chunk_ref(*args), 5),
+               "library_ms": None}
+    res.update(flops=flops, flops_full_square=square, bytes=nbytes,
+               bound_ms=max(bound_ops, bound_bytes),
+               bound_by="operations" if bound_ops >= bound_bytes else "bytes",
+               ops_bound_ms=bound_ops, bytes_bound_ms=bound_bytes,
+               tflops=flops / (res["ms"] * 1e-3) / 1e12)
+    log("[time] ssd_intra_chunk_fwd " + json.dumps(
+        {"shape": list(SSD_PREFILL[:6]) + ["bfloat16"], **res}))
+    return res
+
+
+def prefill(eng, kernel=fa.flash_attention_fwd, mix=_attention_mix,
+            tols=PREFILL_REL_TOL) -> dict:
+    """Full-width prefill through ``build_prefill_step`` with the kernel
+    switch (``use_flash_kernel``) on: B x S tokens from numpy seed 0 on the
+    serve phase's weights.  Gates the logits' shape and finiteness, one
+    launch of ``kernel`` per layer per forward, and agreement with the same
+    forward on the plain path (``attend_full``, since S <= 2 * attn_chunk,
+    or the plain chunked SSD), end to end and per layer (``mix`` is the
+    layer's mixer), within ``tols``."""
     cfg = dataclasses.replace(eng.cfg, use_flash_kernel=True)
     step = build_prefill_step(get_model(cfg, "cuda"))
     plain_step = build_prefill_step(get_model(eng.cfg, "cuda"))
@@ -663,44 +815,57 @@ def prefill(eng) -> dict:
     batch = {"tokens": torch.from_numpy(tokens).cuda()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0      # the main path: counts from 0
+    kernel.launches = 0                      # the main path: counts from 0
     t0 = time.perf_counter()
     logits = step(eng.params, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = fa.flash_attention_fwd.launches
+    launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
     want = (PREFILL_B, PREFILL_S, cfg.padded_vocab)
     if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}, "
                              f"want {want} and finite")
     if launches != cfg.n_layers:
-        raise AssertionError(f"{launches} flash launches in one forward, "
+        raise AssertionError(f"{launches} kernel launches in one forward, "
                              f"want {cfg.n_layers}")
     plain = plain_step(eng.params, batch)
+    if kernel.launches != launches:
+        raise AssertionError("the plain path launched the kernel")
     agree = {"bf16": rel_max_diff(logits, plain),
              "argmax_agreement": float((logits.argmax(-1)
                                         == plain.argmax(-1)).float().mean()),
-             "bf16_layer": check_layers(eng.params, eng.cfg, batch["tokens"])}
+             "bf16_layer": check_layers(eng.params, eng.cfg, batch["tokens"],
+                                        mix)}
     del logits, plain
     agree["fp32"] = prefill_fp32(eng, batch)
-    log("[prefill] flash vs attend_full, max |diff| / max |ref|: "
-        + json.dumps(agree))
-    for key, tol in PREFILL_REL_TOL.items():
+    log(f"[prefill] {cfg.name}: kernel vs plain path, max |diff| / max "
+        f"|ref|: " + json.dumps(agree))
+    for key, tol in tols.items():
         if not agree[key] <= tol:
-            raise AssertionError(f"flash and plain prefill differ ({key}): "
+            raise AssertionError(f"kernel and plain prefill differ ({key}): "
                                  f"{agree[key]} > {tol}")
     wall = wall_s(lambda: step(eng.params, batch), 3)
     plain_wall = wall_s(lambda: plain_step(eng.params, batch), 3)
-    prof = profile_window(lambda: step(eng.params, batch))
+    # the kernel's device time from this profile, where each of its
+    # launches must show (profiles of back-to-back calls of the wrapper
+    # alone have held fewer launches than were made)
+    prof = profile_window(lambda: step(eng.params, batch),
+                          KERNEL_NAMES[kernel])
+    for name, (count, _) in prof["named"].items():
+        if count != launches:
+            raise AssertionError(f"the prefill's profile holds {count} "
+                                 f"{name} kernels, not {launches}")
     tokens_n = PREFILL_B * PREFILL_S
     out = {"launches": launches, "first_call_s": first_s,
            "wall_ms": wall * 1e3, "tokens_per_s": tokens_n / wall,
            "plain_wall_ms": plain_wall * 1e3,
            "plain_tokens_per_s": tokens_n / plain_wall,
-           "max_memory_allocated": peak, "profile": prof, **agree}
-    log(f"[prefill] B={PREFILL_B} S={PREFILL_S} bf16, flash kernel: "
-        + json.dumps(out))
+           "max_memory_allocated": peak, "profile": prof,
+           "kernel_device_ms": sum(
+               ms for _, ms in prof["named"].values()) / launches, **agree}
+    log(f"[prefill] {cfg.name} B={PREFILL_B} S={PREFILL_S} bf16, kernel "
+        f"path: " + json.dumps(out))
     return out
 
 
@@ -709,9 +874,9 @@ def rel_max_diff(got: torch.Tensor, want: torch.Tensor) -> float:
                  / want.float().abs().max())
 
 
-def check_layers(params, cfg, tokens) -> float:
-    """Each layer's attention block on the hidden state the flash forward
-    feeds it, through the kernel and through ``attend_full``: the largest
+def check_layers(params, cfg, tokens, mix=_attention_mix) -> float:
+    """Each layer's mixer (``mix``) on the hidden state the kernel forward
+    feeds it, through the kernel and through the plain path: the largest
     relative difference over the layers."""
     flash_cfg = dataclasses.replace(cfg, use_flash_kernel=True)
     worst = 0.0
@@ -727,18 +892,16 @@ def check_layers(params, cfg, tokens) -> float:
             for i, spec in enumerate(cfg.block):
                 p = rep[f"layer{i}"]
                 h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-                worst = max(worst, rel_max_diff(
-                    attention_block(p["attn"], h, pos, cfg=flash_cfg),
-                    attention_block(p["attn"], h, pos, cfg=cfg)))
+                worst = max(worst, rel_max_diff(mix(p, h, pos, flash_cfg),
+                                                mix(p, h, pos, cfg)))
                 x, aux = transformer._apply_layer(p, spec, x, pos, flash_cfg,
                                                   aux)
     return worst
 
 
 def prefill_fp32(eng, batch) -> float:
-    """The full-width prefill in fp32 (the serve weights widened), flash
-    kernel against ``attend_full``: the relative difference of the
-    logits."""
+    """The full-width prefill in fp32 (the serve weights widened), kernel
+    path against plain path: the relative difference of the logits."""
     cfg = dataclasses.replace(eng.cfg, dtype="float32")
     params = TransformerLM(cfg, device="meta")
     params.load_state_dict({k: v.float() for k, v
@@ -753,28 +916,29 @@ def prefill_fp32(eng, batch) -> float:
     return out
 
 
-def check_forward_on_small_input() -> None:
-    """Reduced TinyLlama in fp32: the card's forward through the flash
-    kernel agrees with the CPU's plain forward on the same weights and
-    tokens at 5e-4 (the reference's tolerance for the kernel inside the
-    model, tests/test_kernels.py:96-115)."""
-    cfg = get_config(ARCH).reduced()
+def check_forward_on_small_input(arch: str = ARCH,
+                                 kernel=fa.flash_attention_fwd) -> None:
+    """Reduced ``arch`` in fp32: the card's forward through the kernel
+    agrees with the CPU's plain forward on the same weights and tokens at
+    5e-4 (the reference's tolerance for the kernel inside the model,
+    tests/test_kernels.py:96-115)."""
+    cfg = get_config(arch).reduced()
     cpu, card = small_models(cfg)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 96), dtype=np.int32))
     want = build_prefill_step(get_model(cfg, "cpu"))(cpu, {"tokens": tokens})
-    n0 = fa.flash_attention_fwd.launches
+    n0 = kernel.launches
     got = build_prefill_step(get_model(
         dataclasses.replace(cfg, use_flash_kernel=True), "cuda"))(
             card, {"tokens": tokens.cuda()})
     torch.cuda.synchronize()
-    if fa.flash_attention_fwd.launches - n0 != cfg.n_layers:
+    if kernel.launches - n0 != cfg.n_layers:
         raise AssertionError("the reduced forward did not launch the kernel")
     if not torch.allclose(got.cpu(), want, atol=5e-4, rtol=5e-4):
         raise AssertionError(f"reduced forward: card and CPU differ by "
                              f"{max_abs_err(got.cpu(), want)}")
-    log(f"[check] reduced fp32 forward (flash kernel) == CPU within 5e-4; "
-        f"max_abs_err {max_abs_err(got.cpu(), want):.3e}")
+    log(f"[check] reduced fp32 {arch} forward (kernel path) == CPU within "
+        f"5e-4; max_abs_err {max_abs_err(got.cpu(), want):.3e}")
 
 
 def train(eng) -> dict:
@@ -804,8 +968,8 @@ def train(eng) -> dict:
            "median_step_ms": med,
            "tokens_per_s": TRAIN_B * TRAIN_S / (med * 1e-3),
            "max_memory_allocated": peak}
-    log(f"[train] B={TRAIN_B} S={TRAIN_S} bf16, {TRAIN_STEPS} steps: "
-        + json.dumps(out))
+    log(f"[train] {eng.cfg.name} B={TRAIN_B} S={TRAIN_S} bf16, "
+        f"{TRAIN_STEPS} steps: " + json.dumps(out))
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"non-finite loss or grad norm: {out}")
     if not losses[-1] < losses[0]:
@@ -814,12 +978,12 @@ def train(eng) -> dict:
     return out
 
 
-def check_train_step_on_small_input() -> None:
-    """Reduced TinyLlama in fp32 (2 layers): one train step on the card
+def check_train_step_on_small_input(arch: str = ARCH) -> None:
+    """Reduced ``arch`` in fp32 (2 layers): one train step on the card
     agrees with the CPU's on the same weights and batch: loss and grad norm
     at rtol 1e-4, new parameters at rtol 2e-2, atol 2e-4 (the port's CPU
     test against the reference, tests/test_torch_forward.py)."""
-    cfg = get_config(ARCH).reduced(n_layers=2)
+    cfg = get_config(arch).reduced(n_layers=2)
     cpu, card = small_models(cfg)
     shape = ShapeSpec("s", 32, 4, "train")
     api_c, api_g = get_model(cfg, "cpu"), get_model(cfg, "cuda")
@@ -837,7 +1001,7 @@ def check_train_step_on_small_input() -> None:
         if not torch.allclose(t.cpu(), want[k], rtol=2e-2, atol=2e-4):
             raise AssertionError(f"reduced train step: {k} differs by "
                                  f"{max_abs_err(t.cpu(), want[k])}")
-    log(f"[check] reduced fp32 train step: card == CPU (loss "
+    log(f"[check] reduced fp32 {arch} train step: card == CPU (loss "
         f"{float(mg['loss']):.6f} vs {float(mc['loss']):.6f})")
 
 
@@ -1157,10 +1321,12 @@ def _forward_reads(gm, seq, plan, loss_pos: int) -> tuple:
     return loss_op, reads
 
 
-def tensile_train(link: dict, quant_bw: float) -> dict:
-    """The paper's loop at full width: capture the train step on fake
-    tensors, plan it under a budget, execute it (see the module
-    docstring).  Returns what the kernel table and the report need."""
+def tensile_capture(link: dict, quant_bw: float) -> dict:
+    """The full-width TinyLlama train step of ``tensile_train`` (B 4,
+    S 1024, no remat) captured on fake tensors: its config, batch, access
+    sequence and graph, parameter names, the machine profile from the
+    measured host link and quantize rate, and the unscheduled planned
+    peak."""
     cfg = dataclasses.replace(get_config(ARCH), remat="none")
     api = get_model(cfg, "cuda")
     batch = api.input_specs(ShapeSpec("tensile_train", TRAIN_S, TRAIN_B,
@@ -1170,7 +1336,6 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
     log(f"[tensile] calibrate_cuda: {calib.flops:.4e} flop/s, "
         f"{calib.mem_bw:.4e} B/s")
     params = dict(TransformerLM(cfg, device="meta").named_parameters())
-    n_params, names = len(params), list(params)
     t0 = time.perf_counter()
     # traced on fake tensors: the arguments' shapes, dtypes and device only
     args = pytree.tree_map(lambda p: torch.empty_like(p, device="cuda"),
@@ -1178,11 +1343,6 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
     seq, gm = capture_train_step(step, *args, batch,
                                  cost_model=CostModel(calib))
     capture_s = time.perf_counter() - t0
-    del params, args
-    n_state = 1 + 3 * n_params                 # params, step, mu, nu
-    groups = {"params": range(n_params),
-              "mu": range(n_params + 1, 2 * n_params + 1),
-              "nu": range(2 * n_params + 1, 3 * n_params + 1)}
     profile = MachineProfile(host_link_bw=link["host_link_bw"],
                              host_link_latency=link["host_link_latency"],
                              dma_batch_overhead=link["dma_batch_overhead"],
@@ -1192,6 +1352,24 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
     log(f"[tensile] captured {len(seq.operators)} operators, "
         f"{len(seq.tensors)} tensors in {capture_s:.2f} s; unscheduled "
         f"planned peak {unsched_peak} B")
+    return {"cfg": cfg, "batch": batch, "seq": seq, "gm": gm,
+            "names": list(params), "profile": profile,
+            "unsched_peak": unsched_peak, "capture_s": capture_s}
+
+
+def tensile_train(link: dict, quant_bw: float) -> dict:
+    """The paper's loop at full width: capture the train step on fake
+    tensors, plan it under a budget, execute it (see the module
+    docstring).  Returns what the kernel table and the report need."""
+    cap = tensile_capture(link, quant_bw)
+    cfg, batch, seq, gm, names, profile, unsched_peak, capture_s = (
+        cap[k] for k in ("cfg", "batch", "seq", "gm", "names", "profile",
+                         "unsched_peak", "capture_s"))
+    n_params = len(names)
+    n_state = 1 + 3 * n_params                 # params, step, mu, nu
+    groups = {"params": range(n_params),
+              "mu": range(n_params + 1, 2 * n_params + 1),
+              "nu": range(2 * n_params + 1, 3 * n_params + 1)}
 
     # what the card holds before any train state exists (the allocator's
     # readings below are net of it)
@@ -1270,11 +1448,22 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
 
     # ---- the uncompressed plan: every step bit-identical to the
     # unscheduled step from the same state --------------------------------
+    def leaf_name(i: int) -> str:
+        for g, idx in groups.items():
+            if i in idx:
+                return f"{g} {names[i - idx.start]}"
+        return "step" if i == n_params else f"output {i}"
+
     def check_plain(k, outs, ref):
-        same = all(torch.equal(a.cpu(), b) for a, b in zip(outs, ref["outs"]))
-        if not same:
+        bad = [(leaf_name(i), max_abs_err(a.cpu(), b))
+               for i, (a, b) in enumerate(zip(outs, ref["outs"]))
+               if not torch.equal(a.cpu(), b)]
+        if bad:
             raise AssertionError(f"the uncompressed tensile plan's step "
-                                 f"{k + 1} differs from the unscheduled step")
+                                 f"{k + 1} differs from the unscheduled step "
+                                 f"in {len(bad)} of {len(outs)} outputs, "
+                                 f"first {bad[:8]}; plan "
+                                 f"{json.dumps(counts_t)}")
         return {"bit_identical_to_unscheduled": True}
 
     if not all(torch.equal(a, b) for a, b in zip(ref1, _host_copy(
@@ -1471,6 +1660,25 @@ def main() -> int:
     del result, bud
     torch.cuda.empty_cache()
 
+    # Mamba-2 780M: the SSD kernel, then serve, prefill and train
+    ssd_errs = timed("check_ssd", check_ssd)
+    ssm = timed("serve_ssm", serve, MachineProfile(), SSM_ARCH)
+    ssm_serve = ssm["runs"]["budgeted"]
+    if not any(dtype == "torch.float32" and k > 1
+               for (_, _, dtype, k) in ssm_serve["shapes"]):
+        raise AssertionError("no batched launch moved the fp32 SSM state")
+    timed("profile_decode_ssm", profile_decode, ssm["eng"])
+    timed("check_decode_ssm", check_decode_on_small_input, SSM_ARCH)
+    ssm_pre = timed("prefill_ssm", prefill, ssm["eng"],
+                    ss.ssd_intra_chunk_fwd, _mamba_mix, SSM_PREFILL_REL_TOL)
+    timed("check_forward_ssm", check_forward_on_small_input, SSM_ARCH,
+          ss.ssd_intra_chunk_fwd)
+    timed("train_ssm", train, ssm["eng"])
+    timed("check_train_step_ssm", check_train_step_on_small_input, SSM_ARCH)
+    ts = timed("time_ssd", time_ssd)
+    del ssm
+    torch.cuda.empty_cache()
+
     quant = timed("check_quant", check_quant)
     quant_big = timed("time_quant", time_quant, QUANT_BIG, torch.float32)
     timed("tensile_mlp", tensile_mlp)
@@ -1485,6 +1693,8 @@ def main() -> int:
     (shape, dtype), _ = max(tt["quantized_shapes_raw"].items(),
                             key=lambda kv: (kv[1], math.prod(kv[0][0])))
     qt = timed("time_quant", time_quant, shape, getattr(torch, dtype))
+    torch.cuda.empty_cache()
+
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         ks = collections.Counter()
@@ -1504,7 +1714,8 @@ def main() -> int:
             "wrapper_ms": t[name]["wrapper_ms"],
             "device_ms": t[name]["device_ms"],
             "library_device_ms": t[name]["library_device_ms"],
-            "shape": [MAX_SEQUENCES, width, "bfloat16", k_main]})
+            "shape": [MAX_SEQUENCES, width, "bfloat16", k_main],
+            "launches_serve_ssm": ssm_serve["launches"][name]})
     b, sq, _, h, kvh, d, _, _, _ = FLASH_PREFILL
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1513,7 +1724,7 @@ def main() -> int:
         "max_abs_err": flash_errs[FLASH_PREFILL],
         "ms": tf["ms"], "plain_ms": tf["plain_ms"],
         "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"],
-        "library_ms": tf["library_ms"], "device_ms": tf["device_ms"],
+        "library_ms": tf["library_ms"], "device_ms": pre["kernel_device_ms"],
         "tolerance": FLASH_TOL[torch.bfloat16],
         "shape": [b, sq, h, kvh, d, "bfloat16", "causal"]})
     for name in ("quantize_blocked", "dequantize_blocked"):
@@ -1528,6 +1739,21 @@ def main() -> int:
             "shape": qt[name]["shape"], "dtype": qt[name]["dtype"],
             "ms_64mib_fp32": quant_big[name]["ms"],
             "bound_ms_64mib_fp32": quant_big[name]["bound_ms"]})
+    b, nc, q, h, p, n, _ = SSD_PREFILL
+    kernels.append({
+        "name": "ssd_intra_chunk_fwd", "route": "cuda",
+        "source": SSD_SOURCE, "replaces": REPLACES["ssd_intra_chunk_fwd"],
+        "launches": ssm_pre["launches"],
+        "max_abs_err": ssd_errs[SSD_PREFILL]["max_abs_err"],
+        "ms": ts["ms"], "plain_ms": ts["plain_ms"],
+        "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
+        "library_ms": None, "device_ms": ssm_pre["kernel_device_ms"],
+        "bytes_bound_ms": ts["bytes_bound_ms"], "tolerance": SSD_TOL,
+        "tolerance_share": max(e["tolerance_share"]
+                               for e in ssd_errs.values()),
+        "max_abs_err_sweep": max(ssd_errs[sh]["max_abs_err"]
+                                 for sh in SSD_SWEEP),
+        "shape": [b, nc, q, h, p, n, "bfloat16"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -377,10 +377,17 @@ class FxExecutor:
             with torch.cuda.stream(self._compute):
                 dst = torch.empty_strided(rec.size, rec.stride,
                                           dtype=rec.dtype, device=self.dev)
-            if torch.cuda.current_stream(self.dev) != self._compute:
+            cur = torch.cuda.current_stream(self.dev)
+            if cur != self._compute:
                 # written on the copy stream: however the store drops it,
                 # the allocator must not hand it out before the write
-                dst.record_stream(torch.cuda.current_stream(self.dev))
+                dst.record_stream(cur)
+                # and the write must land after whatever the allocation
+                # queued on the compute stream: under deterministic
+                # algorithms ``empty_strided`` fills the new memory with
+                # NaN there, and a fill that ran after the copy would
+                # overwrite the fetched value
+                cur.wait_stream(self._compute)
         else:
             dst = torch.empty_strided(rec.size, rec.stride, dtype=rec.dtype,
                                       device=self.dev)

@@ -4,9 +4,11 @@ The KV row copies are straightforward row loops, independent of the kernel
 they check and of PyTorch's fused indexing operators; unlike the JAX
 oracles, the scatter writes into ``pool`` in place, as the kernel does.
 ``flash_attention_ref`` is the JAX oracle's einsum attention, line for
-line.  ``quantize_blocked_ref``/``dequantize_blocked_ref`` are the JAX
-package's numpy versions (``kernels/ref.py``) in PyTorch: flatten, zero-pad
-to rows of 512, per-row absmax scale, round half to even.
+line, and ``ssd_intra_chunk_ref`` is its SSD oracle (with ``_segsum``),
+fp32 throughout, its prefix sums rounded as the CPU rounds them
+(``cumsum64``).  ``quantize_blocked_ref``/``dequantize_blocked_ref`` are
+the JAX package's numpy versions (``kernels/ref.py``) in PyTorch: flatten,
+zero-pad to rows of 512, per-row absmax scale, round half to even.
 """
 from __future__ import annotations
 
@@ -43,6 +45,45 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def cumsum64(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.cumsum`` as it runs on the CPU on every device: accumulated
+    in float64, each output rounded once to x's dtype.  On the card an fp32
+    cumsum accumulates in fp32, adding up to half an ulp of the running sum
+    per term; at |cum| ~ 200 (a 256-long SSD chunk at full width, where the
+    ulp is 1.5e-5) ``exp(cum_i - cum_j)`` carries that into the SSD's
+    output at the order of its 1e-4 tolerance.  With this the CPU, the card
+    and the kernel (``csrc/ssd_scan.cu``) round the prefix sums alike."""
+    return torch.cumsum(x, dim, dtype=torch.float64).to(x.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """L[..., i, j] = sum_{j<k<=i} x_k for i >= j, else -inf.  The oracle
+    and the plain chunked path of ``models.ssm`` share it, so their prefix
+    sums round alike."""
+    s = cumsum64(x, -1)
+    diff = s[..., :, None] - s[..., None, :]
+    q = x.shape[-1]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, diff, -torch.inf)
+
+
+def ssd_intra_chunk_ref(xc: torch.Tensor, dtc: torch.Tensor,
+                        da: torch.Tensor, bc: torch.Tensor, cc: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xc: (B,NC,Q,H,P); dtc/da: (B,NC,Q,H); bc/cc: (B,NC,Q,N)
+    -> y_diag (B,NC,Q,H,P) fp32, states (B,NC,H,P,N) fp32."""
+    xc32, da32, dt32, b32, c32 = (t.float() for t in (xc, da, dtc, bc, cc))
+    lmat = torch.exp(_segsum(da32.movedim(2, 3)))          # (B,NC,H,Q,Q)
+    scores = torch.einsum("bcqn,bckn->bcqk", c32, b32)
+    y = torch.einsum("bcqk,bchqk,bckh,bckhp->bcqhp", scores, lmat, dt32,
+                     xc32)
+    cum = cumsum64(da32, 2)
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum)
+    states = torch.einsum("bcqh,bcqh,bcqn,bcqhp->bchpn", decay_end, dt32,
+                          b32, xc32)
+    return y, states
 
 
 def kv_block_gather_ref(pool: torch.Tensor,

@@ -1,11 +1,12 @@
-"""Decoder LM: attention mixers with dense FFNs.
+"""Decoder LM: attention or Mamba-2 mixers with dense (or no) FFNs.
 
 The model is ``n_repeats`` copies of a ``block`` of layers, with the layer
 parameters stacked on a leading axis as in the JAX package (which scans
 over them); here a Python loop over the repeats takes the scan's place.
 The full-sequence forward and loss (prefill, training) and the one-token
-decode step are ported.  Mamba and MoE layers raise
-``NotImplementedError`` until their slices.
+decode step are ported for both mixers (``models/ssm.py`` holds Mamba-2);
+a layer is dispatched on ``spec.mixer`` as in the reference.  MoE FFNs
+raise ``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
 
@@ -19,12 +20,10 @@ from .attention import (Attention, attention_block, decode_attention_block,
 from .layers import (MLP, Embedding, ParamTree, embed_tokens,
                      fused_unembed_cross_entropy, mlp_apply, ones_init,
                      rmsnorm, softmax_cross_entropy, unembed)
+from .ssm import Mamba2, init_ssm_cache, mamba2_block, mamba2_decode_step
 
 
 def _check_spec(spec) -> None:
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet (attention only)")
     if spec.ffn == "moe":
         raise NotImplementedError("MoE FFNs are not ported yet")
 
@@ -33,7 +32,8 @@ def _check_spec(spec) -> None:
 # Init
 # ----------------------------------------------------------------------
 class DecoderLayer(ParamTree):
-    """``_init_layer`` for an attention mixer and a dense (or no) FFN."""
+    """``_init_layer`` for an attention or Mamba-2 mixer and a dense (or
+    no) FFN."""
 
     def __init__(self, spec, cfg, *, dtype, device, gen=None,
                  lead: Sequence[int] = (), d_ff: Optional[int] = None):
@@ -41,8 +41,11 @@ class DecoderLayer(ParamTree):
         _check_spec(spec)
         kw = dict(dtype=dtype, device=device, lead=lead)
         self.ln1 = ones_init((cfg.d_model,), **kw)
-        self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.head_dim, cfg.qkv_bias, gen=gen, **kw)
+        if spec.mixer == "attn":
+            self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, cfg.qkv_bias, gen=gen, **kw)
+        else:
+            self.mamba = Mamba2(cfg, gen=gen, **kw)
         if spec.ffn != "none":
             self.ln2 = ones_init((cfg.d_model,), **kw)
             self.mlp = MLP(cfg.d_model, d_ff or cfg.d_ff, cfg.mlp_act,
@@ -93,7 +96,10 @@ def init_model(cfg, generator: torch.Generator, device) -> TransformerLM:
 # ----------------------------------------------------------------------
 def _apply_layer(p, spec, x, positions, cfg, aux):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + attention_block(p["attn"], h, positions, cfg=cfg)
+    if spec.mixer == "attn":
+        x = x + attention_block(p["attn"], h, positions, cfg=cfg)
+    else:
+        x = x + mamba2_block(p["mamba"], h, cfg)
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
@@ -176,28 +182,36 @@ def loss_fn(params: TransformerLM, batch: Dict[str, torch.Tensor], cfg,
 # Decode (serve path)
 # ----------------------------------------------------------------------
 def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, Any]:
-    """The JAX cache tree ``{"prefix<i>": {"k","v"}, "blocks": {"layer<i>":
-    {"k","v"}}}``; block leaves are ``(n_repeats, B, max_len, KV, Dh)``."""
+    """The JAX cache tree ``{"prefix<i>": {...}, "blocks": {"layer<i>":
+    {...}}}``: ``{"k","v"}`` for an attention layer, ``{"conv_x", "conv_b",
+    "conv_c", "state"}`` for a Mamba-2 layer.  Block leaves lead with
+    ``n_repeats`` and keep the batch on axis 1: ``(n_repeats, B, max_len,
+    KV, Dh)`` and ``(n_repeats, B, ...)`` (the SSM leaves have no position
+    axis)."""
     dtype = getattr(torch, cfg.dtype)
+
+    def layer_cache(spec, lead=()):
+        _check_spec(spec)
+        if spec.mixer == "attn":
+            return init_kv_cache(batch, max_len, cfg.n_kv_heads,
+                                 cfg.head_dim, dtype, device, lead=lead)
+        return init_ssm_cache(batch, cfg, dtype, device, lead=lead)
+
     cache: Dict[str, Any] = {}
     for i, spec in enumerate(cfg.prefix):
-        _check_spec(spec)
-        cache[f"prefix{i}"] = init_kv_cache(batch, max_len, cfg.n_kv_heads,
-                                            cfg.head_dim, dtype, device)
-    blocks = {}
-    for i, spec in enumerate(cfg.block):
-        _check_spec(spec)
-        blocks[f"layer{i}"] = init_kv_cache(
-            batch, max_len, cfg.n_kv_heads, cfg.head_dim, dtype, device,
-            lead=(cfg.n_repeats,))
-    cache["blocks"] = blocks
+        cache[f"prefix{i}"] = layer_cache(spec)
+    cache["blocks"] = {f"layer{i}": layer_cache(spec, (cfg.n_repeats,))
+                       for i, spec in enumerate(cfg.block)}
     return cache
 
 
 def _decode_layer(p, spec, x, cache, index, cfg):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    mix, new_cache = decode_attention_block(p["attn"], h, cache, index,
-                                            cfg=cfg)
+    if spec.mixer == "attn":
+        mix, new_cache = decode_attention_block(p["attn"], h, cache, index,
+                                                cfg=cfg)
+    else:
+        mix, new_cache = mamba2_decode_step(p["mamba"], h, cache, cfg)
     x = x + mix
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
@@ -219,7 +233,7 @@ def decode_step(params: TransformerLM, cfg, tokens: torch.Tensor,
             name = f"layer{i}"
             leaf = cache["blocks"][name]
             x, _ = _decode_layer(blocks[name].at(r), spec, x,
-                                 {"k": leaf["k"][r], "v": leaf["v"][r]},
+                                 {k: t[r] for k, t in leaf.items()},
                                  index, cfg)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)

@@ -6,7 +6,8 @@ JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances: 0 for the KV row copies (a copy must not change a bit); the
 JAX reference's 2e-5 (fp32) and 2e-2 (bf16) for flash attention
-(``tests/test_kernels.py:34``); 0 for the blocked int8 quantize and
+(``tests/test_kernels.py:34``); its 1e-4 for the SSD intra-chunk kernel
+(``tests/test_kernels.py:51-68``); 0 for the blocked int8 quantize and
 dequantize (the same IEEE fp32 arithmetic and rounding as their plain
 versions); the executor's copy stream against its inline swaps under
 one plan at rtol 1e-3, atol 1e-5 (both compute the exact step; only the
@@ -19,10 +20,12 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import offload_quant as oq
+from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.ref import (dequantize_blocked_ref,
                                      flash_attention_ref, kv_block_gather_ref,
                                      kv_block_scatter_ref,
-                                     quantize_blocked_ref)
+                                     quantize_blocked_ref,
+                                     ssd_intra_chunk_ref)
 
 
 @pytest.mark.cuda
@@ -74,6 +77,40 @@ def test_flash_kernel_matches_plain_version(b, sq, skv, h, kvh, d, causal,
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,q,h,p,n,dtype", [
+    (2, 3, 64, 4, 16, 32, torch.float32),      # the reference's sweep
+    (1, 2, 128, 2, 64, 128, torch.float32),
+    (1, 5, 32, 8, 64, 16, torch.float32),
+    (1, 1, 200, 4, 64, 128, torch.float32),    # ragged chunk
+    (1, 2, 256, 48, 64, 128, torch.bfloat16),  # Mamba-2 780M's heads
+])
+def test_ssd_kernel_matches_plain_version(b, nc, q, h, p, n, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(0)
+
+    def softplus(a):
+        return np.log1p(np.exp(a)).astype(np.float32)
+
+    x = rng.standard_normal((b, nc, q, h, p), dtype=np.float32)
+    dt = softplus(rng.standard_normal((b, nc, q, h), dtype=np.float32))
+    da = -softplus(rng.standard_normal((b, nc, q, h), dtype=np.float32))
+    bc = rng.standard_normal((b, nc, q, n), dtype=np.float32)
+    cc = rng.standard_normal((b, nc, q, n), dtype=np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (x, dt, da, bc, cc)]
+    args[0] = args[0].to(dtype)
+    n0 = ssd_scan.ssd_intra_chunk_fwd.launches
+    with torch.inference_mode():
+        y, st = ssd_scan.ssd_intra_chunk_fwd(*args)
+        y_ref, st_ref = ssd_intra_chunk_ref(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_intra_chunk_fwd.launches == n0 + 1
+    assert y.dtype == st.dtype == torch.float32
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

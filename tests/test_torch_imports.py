@@ -14,14 +14,15 @@ from repro_torch.configs import get_config
 from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# the TENSILE loop's modules: each must be among those walked and checked
+# the TENSILE loop's and the SSM slice's modules: each must be among those
+# walked and checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
     "core.pass_state", "core.engine", "core.swap_planner",
     "core.recompute_planner", "core.passes", "core.scheduler",
     "core.simulator", "core.baselines", "core.cost_model",
     "core.graph_capture", "core.executor", "kernels.offload_quant",
-    "service.workloads", "optim.adam")]
+    "service.workloads", "optim.adam", "models.ssm", "kernels.ssd_scan")]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -81,3 +82,13 @@ def test_tensile_entry_points_raise_without_cuda(no_cuda):
         make_mlp()
     with pytest.raises(RuntimeError):
         calibrate_cuda()
+
+
+def test_mamba2_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("mamba2-780m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine("mamba2-780m")
+    assert get_model(cfg, "cpu").device == torch.device("cpu")

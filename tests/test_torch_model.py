@@ -141,8 +141,8 @@ def test_decode_step_matches_the_reference(n_layers):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "moonshot-v1-16b-a3b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "moonshot-v1-16b-a3b", "whisper-base"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError):
