@@ -14,12 +14,16 @@ random weights from seed 0):
    reproduce the golden tokens bit for bit, with no OOM, with evictions,
    and through both kernels.
 2. the LM forward and training: the flash-attention kernel against its
-   plain version at the reference's sweep and at the prefill's shape; the
+   plain version at the reference's sweep, its bf16 twins (the tensor-core
+   path at every padded head dim) and the prefill's shape, two calls
+   bit-identical; the
    prefill (B 4, S 2048) through ``build_prefill_step`` with the kernel,
    which must launch it once per layer and agree with the plain attention
    path; the reduced fp32 forward card-vs-CPU; 4 train steps (B 4,
    S 1024) through ``build_train_step``, whose loss must fall; the reduced
-   fp32 train step card-vs-CPU; and the kernel's times.
+   fp32 train step card-vs-CPU; and the kernel's times at the prefill's
+   shape and at a D 128 shape, each beside ``scaled_dot_product_attention``,
+   with the bf16 kernel's ptxas registers and spills.
 3. Mamba-2 780M, the SSM slice: the SSD intra-chunk kernel against its
    plain version at the reference's sweep, a ragged chunk and the
    prefill's shape (``check_ssd``); the serve pair as above, whose
@@ -54,6 +58,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -83,7 +88,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_block_copy as kbc  # noqa: E402
 from repro_torch.kernels import offload_quant as oq  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.kernels.build import build_all  # noqa: E402
+from repro_torch.kernels.build import (build_all, nvcc_path,  # noqa: E402
+                                      ptxas_usage)
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      kv_block_gather_ref,
                                      dequantize_blocked_ref,
@@ -166,7 +172,9 @@ ALLOC_LEDGER_TOL = 0.05
 # update fails.
 COMPRESSED_TOL = {"loss": 5e-3, "cosine": 0.2, "ratio": (0.5, 2.0)}
 # (B, Sq, Skv, H, KV, D, causal, dtype, window): the reference's sweep,
-# tests/test_kernels.py:19-48
+# tests/test_kernels.py:19-48, and a bf16 twin of each fp32 shape, so every
+# padded head dim of the tensor-core path runs (D 112 as 128); the window
+# case wipes rows whose first visited kv tile is wholly masked
 FLASH_SWEEP = [
     (2, 128, 128, 4, 2, 64, True, torch.float32, 0),
     (1, 200, 200, 8, 1, 32, True, torch.float32, 0),
@@ -175,10 +183,20 @@ FLASH_SWEEP = [
     (2, 256, 256, 4, 2, 64, True, torch.bfloat16, 0),
     (1, 96, 96, 2, 2, 256, True, torch.float32, 0),
     (1, 256, 256, 4, 2, 64, True, torch.float32, 64),
+    (2, 128, 128, 4, 2, 64, True, torch.bfloat16, 0),
+    (1, 200, 200, 8, 1, 32, True, torch.bfloat16, 0),
+    (2, 64, 256, 4, 4, 128, False, torch.bfloat16, 0),
+    (1, 384, 384, 6, 2, 112, True, torch.bfloat16, 0),
+    (1, 96, 96, 2, 2, 256, True, torch.bfloat16, 0),
+    (1, 256, 256, 4, 2, 64, True, torch.bfloat16, 64),
 ]
 # the prefill's attention: TinyLlama's 32 query and 4 kv heads of dim 64
 FLASH_PREFILL = (PREFILL_B, PREFILL_S, PREFILL_S, 32, 4, 64, True,
                  torch.bfloat16, 0)
+# a D 128 shape timed beside its own SDPA call, a record for the D 128
+# configs (qwen2.5-14b, minitron-4b), not a gate
+FLASH_D128 = (PREFILL_B, PREFILL_S, PREFILL_S, 32, 8, 128, True,
+              torch.bfloat16, 0)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # Flash vs plain (attend_full) prefill, as max |diff| / max |reference|;
 # PERF.md gives the measurements behind each.  bf16 end to end: 22 layers
@@ -276,15 +294,17 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def build() -> None:
+def build() -> dict:
     t0 = time.perf_counter()
     built = build_all()
     log(f"[build] {len(built)} librar{'y' if len(built) == 1 else 'ies'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for b in built.values():
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "Performance Loss")):
                 log(f"[build] {b.name}: {line.strip()}")
+    return built
 
 
 def measure_host_link() -> dict:
@@ -620,8 +640,9 @@ def flash_inputs(shape, seed: int):
 
 def check_flash() -> dict:
     """The flash kernel against ``flash_attention_ref`` on the card, at the
-    reference's sweep and at the prefill's shape, within the reference's
-    tolerances (2e-5 fp32, 2e-2 bf16, as ``allclose`` rtol = atol).
+    reference's sweep, its bf16 twins and the prefill's shape, within the
+    reference's tolerances (2e-5 fp32, 2e-2 bf16, as ``allclose`` rtol =
+    atol); a second call on the same inputs must give the same bits.
     Returns the largest absolute difference per shape."""
     errs = {}
     for shape in FLASH_SWEEP + [FLASH_PREFILL]:
@@ -630,6 +651,8 @@ def check_flash() -> dict:
         with torch.inference_mode():
             got = fa.flash_attention_fwd(q, k, v, causal=causal,
                                          sliding_window=window)
+            again = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                           sliding_window=window)
             want = flash_attention_ref(q, k, v, causal=causal,
                                        sliding_window=window)
         torch.cuda.synchronize()
@@ -641,7 +664,9 @@ def check_flash() -> dict:
         if got.shape != want.shape or not torch.allclose(
                 got.float(), want.float(), rtol=tol, atol=tol):
             raise AssertionError(f"flash kernel differs at {shape}: {err}")
-        del q, k, v, got, want
+        if not torch.equal(got, again):
+            raise AssertionError(f"two flash calls differ at {shape}")
+        del q, k, v, got, again, want
     return errs
 
 
@@ -657,16 +682,17 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(mask.sum())
 
 
-def time_flash() -> dict:
-    """Times at the prefill's attention shape: the kernel (CUDA events over
-    back-to-back calls of the wrapper; its device time comes from the
-    prefill's profile), its plain version, and ``scaled_dot_product_attention`` (the
-    library yardstick, on its (B,H,S,D) layout with the kv heads expanded,
-    prepared outside the timed call; never called by the port).  The bound
-    counts the two products over the unmasked pairs at the bf16 peak
-    against q, k, v and o read or written once at the HBM rate."""
-    b, sq, skv, h, kvh, d, causal, dtype, window = FLASH_PREFILL
-    q, k, v = flash_inputs(FLASH_PREFILL, 1)
+def time_flash(shape=FLASH_PREFILL, plain: bool = True) -> dict:
+    """Times at one attention shape (the prefill's by default): the kernel
+    (CUDA events over back-to-back calls of the wrapper; its device time
+    comes from the prefill's profile), its plain version, and
+    ``scaled_dot_product_attention`` (the library yardstick, on its
+    (B,H,S,D) layout with the kv heads expanded, prepared outside the timed
+    call; never called by the port).  The bound counts the two products
+    over the unmasked pairs at the bf16 peak against q, k, v and o read or
+    written once at the HBM rate."""
+    b, sq, skv, h, kvh, d, causal, dtype, window = shape
+    q, k, v = flash_inputs(shape, 1)
     g = h // kvh
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
@@ -677,24 +703,51 @@ def time_flash() -> dict:
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     with torch.inference_mode():
         res = {
-            "ms": events_ms(lambda: fa.flash_attention_fwd(q, k, v,
-                                                           causal=causal),
-                            10, inner=5),
-            "plain_ms": events_ms(lambda: flash_attention_ref(
-                q, k, v, causal=causal), 5),
+            "ms": events_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=causal, sliding_window=window), 10, inner=5),
             "library_ms": events_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal), 10),
+                    qt, kt, vt, is_causal=causal), 10, inner=5),
         }
+        if plain:
+            res["plain_ms"] = events_ms(lambda: flash_attention_ref(
+                q, k, v, causal=causal, sliding_window=window), 5)
     res.update(flops=flops, bytes=nbytes, bound_ms=max(bound_ops,
                                                         bound_bytes),
                bound_by="operations" if bound_ops >= bound_bytes
                else "bytes", ops_bound_ms=bound_ops,
                bytes_bound_ms=bound_bytes)
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    res["library_tflops"] = flops / (res["library_ms"] * 1e-3) / 1e12
     log("[time] flash_attention_fwd " + json.dumps(
-        {"shape": [b, sq, h, kvh, d, "bfloat16", "causal"], **res}))
+        {"shape": [b, sq, h, kvh, d, str(dtype).replace("torch.", ""),
+                   "causal" if causal else "full"], **res}))
+    del q, k, v, qt, kt, vt
     return res
+
+
+def flash_build_report(built: dict) -> dict:
+    """What the flash library was compiled to: ptxas registers, stack and
+    spills of each kernel instantiation, as name<template arguments> (from
+    this run's build log; empty when the library was already built), and
+    the count of tensor-core instructions in its SASS (``cuobjdump``)."""
+    ptxas = {}
+    for name, use in ptxas_usage(built["flash_attention"].log).items():
+        m = re.search(r"(flash_fwd\w*?)I((?:L[ib]\d+E)+)E", name)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            ptxas[f"{m.group(1)}<{args}>"] = use
+    out = {"ptxas": ptxas, "sass": None}
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(built["flash_attention"].path)],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        out["sass"] = {op: len(re.findall(rf"\b{op}\.", sass))
+                       for op in ("HGMMA", "HMMA", "UTMALDG")}
+    log("[build] flash_attention " + json.dumps(out))
+    return out
 
 
 def _attention_mix(p, h, pos, cfg):
@@ -1625,7 +1678,8 @@ def main() -> int:
     log(card_line())
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
-    timed("build", build)
+    built = timed("build", build)
+    flash_build = flash_build_report(built)
 
     link = timed("host_link", measure_host_link)
     log("[host_link] " + json.dumps(link))
@@ -1654,6 +1708,7 @@ def main() -> int:
     timed("train", train, result["eng"])
     timed("check_train_step", check_train_step_on_small_input)
     tf = timed("time_flash", time_flash)
+    tf128 = timed("time_flash_d128", time_flash, FLASH_D128, False)
     bud = result["runs"]["budgeted"]
     serve_launches = bud["launches"]
     serve_shapes_seen = bud["shapes"]
@@ -1725,8 +1780,12 @@ def main() -> int:
         "ms": tf["ms"], "plain_ms": tf["plain_ms"],
         "bound_ms": tf["bound_ms"], "bound_by": tf["bound_by"],
         "library_ms": tf["library_ms"], "device_ms": pre["kernel_device_ms"],
+        "tflops": tf["tflops"], "library_tflops": tf["library_tflops"],
         "tolerance": FLASH_TOL[torch.bfloat16],
-        "shape": [b, sq, h, kvh, d, "bfloat16", "causal"]})
+        "shape": [b, sq, h, kvh, d, "bfloat16", "causal"],
+        **flash_build,
+        "d128": {k: tf128[k] for k in ("ms", "library_ms", "bound_ms",
+                                       "tflops", "library_tflops")}})
     for name in ("quantize_blocked", "dequantize_blocked"):
         kernels.append({
             "name": name, "route": "cuda", "source": QUANT_SOURCE,

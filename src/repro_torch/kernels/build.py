@@ -13,6 +13,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -76,6 +77,31 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, Built]:
         out[name] = Built(name, target, log)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+    return out
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Registers, stack and spill bytes of each kernel in an ``nvcc -Xptxas
+    -v`` log, keyed by the kernel's mangled name."""
+    out: Dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
     return out
 
 

@@ -5,7 +5,8 @@ q (B,Sq,H,D) and k, v (B,Skv,KV,D) with H % KV == 0 and D <= 256, all fp32
 or all bf16, and returns (B,Sq,H,D) in q's dtype.  On a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` (it
 replaces the Pallas kernel ``flash_attention_fwd`` of the JAX package's
-``kernels/flash_attention.py``); on a CPU tensor it runs
+``kernels/flash_attention.py``): bf16 always on the tensor cores, fp32
+always on the CUDA cores.  On a CPU tensor it runs
 ``ref.flash_attention_ref``.  The wrapper counts its kernel launches in
 ``.launches``.
 
@@ -79,37 +80,55 @@ def _head_strides(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """What the bf16 kernel's TMA copies need: base 16-byte aligned, unit
+    stride in D, the other strides multiples of 8 elements (16 bytes)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in _head_strides(t)))
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         sliding_window: int = 0) -> torch.Tensor:
     """Attention of q over k, v with an fp32 online softmax; masked scores
     take -1e30.  Sequence lengths may differ (non-causal cross shapes) and
-    be ragged; tensors whose head dim is not unit-stride are copied."""
+    be ragged.  Tensors the kernel cannot read in place are copied: a head
+    dim that is not unit-stride; for bf16 also a base that is not 16-byte
+    aligned or a stride that is not a multiple of 8 elements, and a head
+    dim that is not a multiple of 8 is zero-padded to one."""
     _check(q, k, v, sliding_window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    b, sq, h, d = q.shape
+    d = q.shape[3]
+    scale = float(np.float32(1.0 / np.sqrt(d)))    # the reference's f32 scale
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and d % 8:
+        # zero columns of q and k add nothing to a score, and those of v
+        # give output columns that are cut off
+        q, k, v = (torch.nn.functional.pad(t, (0, -d % 8)) for t in (q, k, v))
+    ready = _tma_ready if bf16 else (lambda t: t.stride(-1) == 1)
+    q, k, v = (t if ready(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    b, sq, h, dp = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :d]
     strides = (ctypes.c_int64 * 12)(*_head_strides(q), *_head_strides(k),
                                     *_head_strides(v), *_head_strides(out))
-    scale = float(np.float32(1.0 / np.sqrt(d)))    # the reference's f32 scale
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, sq, skv, h, kvh, d, strides,
+            int(bf16), b, sq, skv, h, kvh, dp, strides,
             int(causal), int(sliding_window), scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(err).decode())
     flash_attention_fwd.launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 flash_attention_fwd.launches = 0

@@ -55,13 +55,20 @@ def test_cuda_kernel_matches_plain_version(n, w, dtype, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,dtype", [
-    (2, 512, 512, 32, 4, 64, True, torch.bfloat16),    # TinyLlama's heads
-    (1, 200, 200, 6, 2, 112, True, torch.float32),     # ragged, D padded
-    (2, 64, 256, 4, 4, 256, False, torch.float32),     # D 256, cross shape
+@pytest.mark.parametrize("b,sq,skv,h,kvh,d,causal,dtype,window", [
+    (2, 512, 512, 32, 4, 64, True, torch.bfloat16, 0),   # TinyLlama's heads
+    (1, 200, 200, 6, 2, 112, True, torch.float32, 0),    # ragged, D padded
+    (2, 64, 256, 4, 4, 256, False, torch.float32, 0),    # D 256, cross shape
+    # the tensor-core path at every padded head dim
+    (1, 200, 200, 8, 1, 32, True, torch.bfloat16, 0),    # MQA, ragged
+    (2, 64, 256, 4, 4, 128, False, torch.bfloat16, 0),   # cross shape
+    (1, 384, 384, 6, 2, 112, True, torch.bfloat16, 0),   # D padded to 128
+    (1, 96, 96, 2, 2, 256, True, torch.bfloat16, 0),
+    (1, 256, 256, 4, 2, 64, True, torch.bfloat16, 64),   # rows wiped
+    (1, 77, 77, 4, 2, 100, True, torch.bfloat16, 0),     # D padded to 104
 ])
 def test_flash_kernel_matches_plain_version(b, sq, skv, h, kvh, d, causal,
-                                            dtype):
+                                            dtype, window):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
@@ -70,13 +77,43 @@ def test_flash_kernel_matches_plain_version(b, sq, skv, h, kvh, d, causal,
                for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d)))
     n0 = fa.flash_attention_fwd.launches
     with torch.inference_mode():
-        got = fa.flash_attention_fwd(q, k, v, causal=causal)
-        want = flash_attention_ref(q, k, v, causal=causal)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                     sliding_window=window)
+        again = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                       sliding_window=window)
+        want = flash_attention_ref(q, k, v, causal=causal,
+                                   sliding_window=window)
     torch.cuda.synchronize()
-    assert fa.flash_attention_fwd.launches == n0 + 1
+    assert fa.flash_attention_fwd.launches == n0 + 2
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == (b, sq, h, d)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, again)          # no atomics, a fixed kv order
+
+
+@pytest.mark.cuda
+def test_flash_bf16_reads_views_and_copies_misaligned_inputs():
+    """q, k and v as views of one fused projection, q as a transposed
+    (B,H,S,D) tensor, and a q whose base is not 16-byte aligned (which the
+    wrapper copies rather than refuse) all give the plain version's
+    result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(1)
+    b, s, h, kvh, d = 2, 150, 8, 2, 64
+    qkv = torch.from_numpy(rng.standard_normal(
+        (b, s, h + 2 * kvh, d), dtype=np.float32)).bfloat16().cuda()
+    q, k, v = qkv.split([h, kvh, kvh], dim=2)
+    flat = torch.from_numpy(rng.standard_normal(
+        b * s * h * d + 1, dtype=np.float32)).bfloat16().cuda()
+    q_odd = flat[1:].view(b, s, h, d)        # base 2 bytes past alignment
+    q_bhsd = flat[:-1].view(b, h, s, d).transpose(1, 2)
+    with torch.inference_mode():
+        for qq in (q, q_odd, q_bhsd):
+            got = fa.flash_attention_fwd(qq, k, v, causal=True)
+            want = flash_attention_ref(qq, k, v, causal=True)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
 
 
 @pytest.mark.cuda
