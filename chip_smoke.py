@@ -7,12 +7,17 @@ its paths at the full width of TinyLlama-1.1B, then of Mamba-2 780M (bf16,
 random weights from seed 0):
 
 1. serving: the KV gather/scatter kernel bit-exact against its plain
-   version at the serving path's shapes, the pinned host link, the
-   reduced decode card-vs-CPU, then ``ServingEngine.serve`` twice,
-   unbudgeted (the golden run) and under a KV budget of about two of four
-   sequences with the batched transfer path.  The budgeted run must
-   reproduce the golden tokens bit for bit, with no OOM, with evictions,
-   and through both kernels.
+   version on 2-D pools, on single cache leaves and on one call over
+   every slotted leaf of both models' caches (``check_kernels``,
+   ``check_leaves``); its times at TinyLlama's two leaves and Mamba-2's
+   fp32 state leaf (``time_leaves``); the pinned
+   host link, the reduced decode card-vs-CPU, then ``ServingEngine.serve``
+   twice, unbudgeted (the golden run) and under a KV budget of about two
+   of four sequences with the batched transfer path.  The budgeted run
+   must reproduce the golden tokens bit for bit, with no OOM, with
+   evictions, and through both kernels, one launch per batched transfer;
+   one batched 2-slot restore of each model is profiled in a fresh process
+   (``profile_restore``).
 2. the LM forward and training: the flash-attention kernel against its
    plain version at the reference's sweep, its bf16 twins (the tensor-core
    path at every padded head dim) and the prefill's shape, two calls
@@ -54,6 +59,7 @@ device record; the line before it is the kernel table.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -110,6 +116,7 @@ from repro_torch.optim.adam import adamw_init  # noqa: E402
 from repro_torch.service.workloads import make_mlp, mlp_numpy  # noqa: E402
 import repro_torch.serving.engine as serving_engine  # noqa: E402
 from repro_torch.serving import ServingEngine, make_trace  # noqa: E402
+from repro_torch.serving.session import SeqState  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same sheet
@@ -223,6 +230,23 @@ SSD_TOL = 1e-4                 # rtol = atol, tests/test_kernels.py:66-68
 # more); end to end in bf16, the flash limit, since flipped ulps grow
 # through the random layers
 SSM_PREFILL_REL_TOL = {"bf16": 0.5, "bf16_layer": 2.0 ** -7, "fp32": SSD_TOL}
+# (shape, dtype, slot axis) of the slotted cache leaves of each model at
+# the serve's 4 slots and MAX_LEN positions, in the engine's (sorted) order
+TINYLLAMA_LEAVES = [((22, MAX_SEQUENCES, MAX_LEN, 4, 64), torch.bfloat16, 1)
+                    ] * 2
+MAMBA_LEAVES = [((48, MAX_SEQUENCES, 3, 128), torch.bfloat16, 1),
+                ((48, MAX_SEQUENCES, 3, 128), torch.bfloat16, 1),
+                ((48, MAX_SEQUENCES, 3, 3072), torch.bfloat16, 1),
+                ((48, MAX_SEQUENCES, 48, 64, 128), torch.float32, 1)]
+# leaves whose segments are not 16-byte multiples, in one call
+ODD_LEAVES = [((3, 5, 7, 11), torch.bfloat16, 1),
+              ((2, 5, 33333), torch.bfloat16, 1),
+              ((6, 77), torch.uint8, 0),
+              ((4, 9, 13), torch.float32, 2)]
+# the budgeted Mamba-2 serve's allocator peak over the golden run's: the
+# gathered rows of one batched transfer (3 slots of 75.5 MB state at most),
+# and no copy of a whole cache leaf (302 MB)
+SSM_SWAP_PEAK_GAP = 160_000_000
 # the device kernels each prefill kernel's wrapper launches, by name
 KERNEL_NAMES = {fa.flash_attention_fwd: ("flash_fwd",),
                 ss.ssd_intra_chunk_fwd: ("ssd_y", "ssd_state")}
@@ -232,31 +256,57 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def events_ms(fn, reps: int, inner: int = 1) -> float:
-    """Median over ``reps`` of CUDA-event time of ``inner`` back-to-back
-    calls of ``fn``, per call, after warm-up."""
+def events_turns(fns, reps: int, inner: int = 1) -> list:
+    """For each of ``fns``, the median over ``reps`` of CUDA-event time of
+    ``inner`` back-to-back calls, per call, after warm-up.  The functions
+    are timed in turns (a b, b a, a b, ...), so that a drift of the host's
+    speed reaches all alike."""
     for _ in range(3):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b) / inner)
-    return statistics.median(out)
+    times = [[] for _ in fns]
+    for r in range(reps):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fns[i]()
+            b.record()
+            b.synchronize()
+            times[i].append(a.elapsed_time(b) / inner)
+    return [statistics.median(t) for t in times]
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Mean device time per call of ``fn``: every kernel and copy it
-    issues, summed from a ``torch.profiler`` trace of ``reps`` calls.
-    Raises if the trace holds no device time.  (Such traces of the
-    millisecond-long prefill kernels held fewer launches than were made,
-    so those kernels take their device time from the prefill's profile.)"""
+def events_ms(fn, reps: int, inner: int = 1) -> float:
+    """``events_turns`` of ``fn`` alone."""
+    return events_turns([fn], reps, inner)[0]
+
+
+@contextlib.contextmanager
+def without_determinism():
+    """Deterministic algorithms off: ``torch.empty`` on the card then
+    queues no NaN fill, and ``index_copy_`` runs (it has no deterministic
+    CUDA path).  For the KV timings and profiles (as a server runs) and
+    the plain scatter."""
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det)
+
+
+def device_ms(fn, reps: int = 20, per_call: int = 1) -> float:
+    """Mean device time per call of ``fn``, which issues ``per_call``
+    kernels and copies: their time summed from a ``torch.profiler`` trace
+    of ``reps`` calls, over ``reps``.  Raises unless the trace holds every
+    one of the ``reps * per_call`` events: after the first serve, traces
+    inside this script lose the earliest events of a window (PERF.md
+    section 7), so device times are taken before it, or in a fresh
+    process (``quant_device_ms``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -265,11 +315,12 @@ def device_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler trace holds no device time")
-    return us / reps / 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(events) != reps * per_call:
+        raise AssertionError(f"the profiler trace holds {len(events)} device "
+                             f"events, not {reps * per_call}")
+    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
 
 
 def wall_s(fn, reps: int) -> float:
@@ -381,60 +432,123 @@ def check_kernels(shapes) -> float:
     return worst
 
 
-def time_kernels(n: int, w: int, dtype, k: int) -> dict:
-    """Times of both kernels, their plain versions and one PyTorch call
-    each, at one shape: medians of CUDA-event times of 50 back-to-back
-    calls, per call.  ``ms`` is the kernel alone (prepared device indices);
-    ``wrapper_ms`` adds the wrapper's checks and index upload, as the engine
-    calls it.  At these sizes the host's launch rate sets all of them, so
-    ``device_ms`` and ``library_device_ms`` give the device's own time from
-    a profiler trace."""
+def random_leaves(spec, gen, offset: int = 0) -> list:
+    """Card tensors of ``spec``'s (shape, dtype, axis) of random bytes (NaN
+    payloads included), each base ``offset`` elements past its
+    allocation's."""
+    out = []
+    for shape, dtype, _ in spec:
+        item = torch.empty((), dtype=dtype).element_size()
+        n = (math.prod(shape) + offset) * item
+        raw = torch.randint(0, 256, (n,), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        out.append(raw.view(dtype)[offset:].view(shape))
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                              b.view(torch.uint8))
+
+
+def check_leaves(cases) -> float:
+    """One gather and one scatter call over every leaf of each case (a
+    leaf spec, K, base offset in elements), read and written in place,
+    byte for byte against the plain versions (``index_select`` and
+    ``index_copy_`` along the slot axis); every other slot untouched; one
+    launch a call.  Returns the largest absolute difference (0.0 when all
+    pass)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = 0.0
+    for spec, k, offset in cases:
+        leaves = random_leaves(spec, gen, offset)
+        axes = [a for _, _, a in spec]
+        n = min(shape[a] for shape, _, a in spec)
+        idx = torch.randperm(n, generator=gen, device="cuda")[:k].tolist()
+        want = kv_block_gather_ref(leaves, idx, axis=axes)
+        blocks = [random_leaves([(w.shape, w.dtype, 0)], gen)[0]
+                  for w in want]
+        with without_determinism():
+            plain = kv_block_scatter_ref([x.clone() for x in leaves], idx,
+                                         blocks, axis=axes)
+        g0 = kbc.kv_block_gather.launches
+        s0 = kbc.kv_block_scatter.launches
+        got = kbc.kv_block_gather(leaves, idx, axis=axes)
+        mine = [x.clone() for x in leaves]
+        ptrs = [x.data_ptr() for x in mine]
+        kbc.kv_block_scatter(mine, idx, blocks, axis=axes)
+        torch.cuda.synchronize()
+        what = f"{[tuple(sh) for sh, _, _ in spec]} K={k} offset {offset}"
+        for g, w in zip(got, want):
+            if g.dtype.is_floating_point:
+                worst = max(worst, max_abs_err(g.nan_to_num(),
+                                               w.nan_to_num()))
+            if not same_bits(g, w):
+                raise AssertionError(f"gather differs at {what}")
+        if not all(same_bits(m, q) for m, q in zip(mine, plain)):
+            raise AssertionError(f"scatter differs at {what}")
+        if [x.data_ptr() for x in mine] != ptrs:
+            raise AssertionError(f"scatter moved a leaf at {what}")
+        if (kbc.kv_block_gather.launches - g0,
+                kbc.kv_block_scatter.launches - s0) != (1, 1):
+            raise AssertionError(f"not one launch a call at {what}")
+        log(f"[kernels] bit-exact: {len(spec)} leaves {what}")
+    return worst
+
+
+def time_leaves(spec, k: int) -> dict:
+    """Times of one gather and one scatter call over every leaf of
+    ``spec`` at K slots, deterministic algorithms off (as a server runs:
+    no NaN fill of the gathered rows): ``ms`` the wrapper as the engine
+    calls it, from host ints (median CUDA-event time of back-to-back
+    calls, per call); ``library_ms`` one ``index_select``
+    (``index_copy_``) call per leaf along its slot axis with prepared
+    int64 device indices, all the leaves' calls back to back, timed in
+    turns with ``ms``; ``device_ms`` and ``library_device_ms`` from
+    profiler traces; the plain versions; and the bound: every gathered
+    byte read once and written once at 3.35 TB/s."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    pool = torch.randn((n, w), generator=gen, device="cuda").to(dtype)
+    leaves = random_leaves(spec, gen)
+    axes = [a for _, _, a in spec]
+    n = min(shape[a] for shape, _, a in spec)
     rows = torch.randperm(n, generator=gen, device="cuda")[:k].tolist()
-    idx = torch.tensor(rows, dtype=torch.int32, device="cuda")
-    idx64 = idx.long()
-    out = torch.empty((k, w), dtype=dtype, device="cuda")
-    blocks = torch.randn((k, w), generator=gen, device="cuda").to(dtype)
-    row_bytes = w * pool.element_size()
-    bound = 2 * k * w * pool.element_size() / HBM_BYTES_PER_S * 1e3
-    res = {}
-    reps, inner = 20, 50
-    det = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(False)   # index_copy_ has no
-    try:                                        # deterministic CUDA path
-        lib_g = events_ms(lambda: torch.index_select(pool, 0, idx64), reps,
-                          inner)
-        lib_s = events_ms(lambda: pool.index_copy_(0, idx64, blocks), reps,
-                          inner)
-        lib_g_dev = device_ms(lambda: torch.index_select(pool, 0, idx64))
-        lib_s_dev = device_ms(lambda: pool.index_copy_(0, idx64, blocks))
-    finally:
-        torch.use_deterministic_algorithms(det)
-    res["kv_block_gather"] = {
-        "ms": events_ms(lambda: kbc._launch(pool, idx, out, None, k,
-                                            row_bytes), reps, inner),
-        "wrapper_ms": events_ms(lambda: kbc.kv_block_gather(pool, rows),
-                                reps, inner),
-        "plain_ms": events_ms(lambda: kv_block_gather_ref(pool, rows), reps,
-                              inner),
-        "library_ms": lib_g, "bound_ms": bound,
-        "device_ms": device_ms(lambda: kbc._launch(pool, idx, out, None, k,
-                                                   row_bytes)),
-        "library_device_ms": lib_g_dev}
-    res["kv_block_scatter"] = {
-        "ms": events_ms(lambda: kbc._launch(blocks, None, pool, idx, k,
-                                            row_bytes), reps, inner),
-        "wrapper_ms": events_ms(lambda: kbc.kv_block_scatter(pool, rows,
-                                                             blocks),
-                                reps, inner),
-        "plain_ms": events_ms(lambda: kv_block_scatter_ref(pool, rows,
-                                                           blocks),
-                              reps, inner),
-        "library_ms": lib_s, "bound_ms": bound,
-        "device_ms": device_ms(lambda: kbc._launch(blocks, None, pool, idx, k,
-                                                   row_bytes)),
-        "library_device_ms": lib_s_dev}
+    idx64 = torch.tensor(rows, dtype=torch.long, device="cuda")
+    blocks = kv_block_gather_ref(leaves, rows, axis=axes)
+    moved = sum(b.numel() * b.element_size() for b in blocks)
+    big = moved > (8 << 20)
+    reps, inner = (10, 3) if big else (20, 50)
+    res = {"leaves": [[list(sh), str(dt).replace("torch.", ""), a]
+                      for sh, dt, a in spec], "k": k, "bytes": 2 * moved,
+           "bound_ms": 2 * moved / HBM_BYTES_PER_S * 1e3}
+    with without_determinism():
+        srcs = [torch.index_select(x, a, idx64) for x, a in zip(leaves, axes)]
+
+        def lib_gather():
+            for x, a in zip(leaves, axes):
+                torch.index_select(x, a, idx64)
+
+        def lib_scatter():
+            for x, a, src in zip(leaves, axes, srcs):
+                x.index_copy_(a, idx64, src)
+
+        calls = {
+            "kv_block_gather": (
+                lambda: kbc.kv_block_gather(leaves, rows, axis=axes),
+                lambda: kv_block_gather_ref(leaves, rows, axis=axes),
+                lib_gather),
+            "kv_block_scatter": (
+                lambda: kbc.kv_block_scatter(leaves, rows, blocks,
+                                             axis=axes),
+                lambda: kv_block_scatter_ref(leaves, rows, blocks,
+                                             axis=axes),
+                lib_scatter)}
+        for name, (wrapper, plain, lib) in calls.items():
+            ms, lib_ms = events_turns([wrapper, lib], reps, inner)
+            res[name] = {
+                "ms": ms, "library_ms": lib_ms,
+                "device_ms": device_ms(wrapper),
+                "plain_ms": events_ms(plain, reps, max(inner // 5, 1)),
+                "library_device_ms": device_ms(lib, per_call=len(spec))}
     return res
 
 
@@ -515,7 +629,7 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
                            trace=True)
         shapes = collections.Counter()
         if name == "budgeted":
-            # the main path: counts from 0, shapes recorded as it calls
+            # the main path: counts from 0, calls recorded as it makes them
             kbc.kv_block_gather.launches = 0
             kbc.kv_block_scatter.launches = 0
             serving_engine.kv_block_gather = _spy(kbc.kv_block_gather,
@@ -567,18 +681,81 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
     if rep.peak_bytes > bud["budget"]:
         raise AssertionError(f"peak {rep.peak_bytes} > budget "
                              f"{bud['budget']}")
+    n_slotted = len(eng._slotted()[1])
     for name, n in bud["launches"].items():
+        calls = sum(c for key, c in bud["shapes"].items() if key[0] == name)
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the serve path")
+        if n != calls or any(len(key[1]) != n_slotted
+                             for key in bud["shapes"]):
+            raise AssertionError(f"{name}: {n} launches for {calls} calls; "
+                                 "a batched transfer must move all "
+                                 f"{n_slotted} slotted leaves in one launch")
     log(f"[serve] budgeted tokens == golden tokens for all {N_REQUESTS} "
-        f"requests; launches {bud['launches']}; "
-        f"cohort sizes {dict(bud['shapes'])}")
+        f"requests; launches {bud['launches']} (one per batched transfer, "
+        f"{n_slotted} leaves each); max_memory_allocated over the golden "
+        f"run {bud['max_memory_allocated'] - gold['max_memory_allocated']} "
+        f"B; calls {dict(bud['shapes'])}")
     eng._step = plain_step
     return {"eng": eng, "runs": runs}
 
 
-def profile_window(fn, names=()) -> dict:
-    """Device-busy ms, the device's idle share and the five kernels with
+def profile_restore(arch: str) -> dict:
+    """One batched restore of slots 0 and 1 over their whole rows, as a
+    decode turn makes it, after a batched save made their shadows, in a
+    full-width serving engine of ``arch`` made for it: its KV launches (by
+    the wrappers' counts: one gather, one scatter), its span on the device
+    by CUDA events, and device-busy ms with the kernels and copies by name
+    from ``torch.profiler``, which must hold every one of them.  Runs in a
+    fresh process (``in_fresh_process``), whose algorithms are not made
+    deterministic: as a server runs, no NaN fill of the gathered rows."""
+    eng = ServingEngine(arch, reduced=False, max_sequences=MAX_SEQUENCES,
+                        max_len=MAX_LEN, seed=0, device="cuda")
+    states = [SeqState(rid=f"restore{i}", slot=i, prompt_len=PROMPT_LEN,
+                       gen_len=GEN_LEN, priority=1.0, arrival=0.0,
+                       pos=MAX_LEN) for i in (0, 1)]
+    eng._save_slots(states)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    eng._restore_slots(states)
+    end.record()
+    end.synchronize()
+    span_ms = start.elapsed_time(end)
+    eng._save_slots(states)
+    torch.cuda.synchronize()
+    g0, s0 = kbc.kv_block_gather.launches, kbc.kv_block_scatter.launches
+    prof = profile_window(lambda: eng._restore_slots(states),
+                          names=("copy_tiles", "Memcpy HtoD", "Memcpy DtoD"),
+                          top=12)
+    launches = (kbc.kv_block_gather.launches - g0,
+                kbc.kv_block_scatter.launches - s0)
+    if launches != (1, 1):
+        raise AssertionError(f"a batched restore made {launches} gather and "
+                             "scatter launches, not one each")
+    # a gather, a scatter and one copy per slot and slotted leaf
+    expected = 2 + len(states) * len(eng._slotted()[1])
+    if prof["device_kernels"] != expected \
+            or prof["named"]["copy_tiles"][0] != 2:
+        raise AssertionError(f"the restore's profile holds "
+                             f"{prof['device_kernels']} device events "
+                             f"({prof['named']['copy_tiles'][0]} KV "
+                             f"kernels), not {expected} (2)")
+    out = {"events_span_ms": span_ms, "wall_ms": prof["wall_ms"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_events": prof["device_kernels"],
+           "kv_kernels": prof["named"]["copy_tiles"],
+           "h2d_copies": prof["named"]["Memcpy HtoD"],
+           "d2d_copies": prof["named"]["Memcpy DtoD"],
+           "by_name_ms": prof["top_kernels_ms"]}
+    log(f"[profile] {eng.cfg.name} batched restore of 2 slots: "
+        + json.dumps(out))
+    return out
+
+
+def profile_window(fn, names=(), top: int = 5) -> dict:
+    """Device-busy ms, the device's idle share and the ``top`` kernels with
     the most device time over one call of ``fn``, from ``torch.profiler``;
     for each of ``names``, the count and device ms of the kernels whose
     name holds it."""
@@ -602,7 +779,7 @@ def profile_window(fn, names=()) -> dict:
     return {"wall_ms": wall_ms, "device_kernels": len(kernels),
             "device_busy_ms": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
-            "top_kernels_ms": dict(by_name.most_common(5)), "named": named}
+            "top_kernels_ms": dict(by_name.most_common(top)), "named": named}
 
 
 def profile_decode(eng, steps: int = 4) -> dict:
@@ -1102,24 +1279,55 @@ def check_quant(cases=None) -> dict:
     return {"max_abs_err": worst, "round_trip_err_over_bound": worst_rt}
 
 
-def time_quant(shape, dtype) -> dict:
-    """Times of both wrappers (CUDA events over back-to-back calls, and the
-    device time from a profiler trace) and of their plain versions at one
-    shape, with the byte bound at 3.35 TB/s: quantize reads n * itemsize and
-    writes n + 4 R bytes, dequantize the reverse."""
+def quant_calls(shape, dtype) -> tuple:
+    """A seeded input of one shape, its quantized rows, and (name, wrapper
+    call, plain call) of both quant kernels on them."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     q, s, meta = oq.quantize_blocked(x)
+    return x, q, (("quantize_blocked", lambda: oq.quantize_blocked(x),
+                   lambda: quantize_blocked_ref(x)),
+                  ("dequantize_blocked",
+                   lambda: oq.dequantize_blocked(q, s, meta),
+                   lambda: dequantize_blocked_ref(q, s, meta)))
+
+
+def quant_device_ms(shape, dtype: str) -> dict:
+    """Device ms per call of both quant wrappers at one shape, from
+    profiler traces (``device_ms``) with deterministic algorithms off, so
+    a call is its one kernel (no NaN fill of its output)."""
+    _, _, calls = quant_calls(tuple(shape), getattr(torch, dtype))
+    return {name: device_ms(fn) for name, fn, _ in calls}
+
+
+def in_fresh_process(phase: str, *args):
+    """Run ``FRESH_PHASES[phase](*args)`` in a new process of this script
+    and return its result; the child's log lines are printed here.  Late in
+    a run, profiler traces lose events (``device_ms``); a fresh process's
+    do not."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--fresh", phase, json.dumps(args)],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"{phase} failed in a fresh process:\n"
+                             + res.stdout + res.stderr)
+    *lines, result = res.stdout.strip().splitlines()
+    for line in lines:
+        log(line)
+    return json.loads(result)
+
+
+def time_quant(shape, dtype) -> dict:
+    """Times of both wrappers (CUDA events over back-to-back calls) and of
+    their plain versions at one shape, with the byte bound at 3.35 TB/s:
+    quantize reads n * itemsize and writes n + 4 R bytes, dequantize the
+    reverse."""
+    x, q, calls = quant_calls(shape, dtype)
     n, rows = x.numel(), q.shape[0]
     moved = n * x.element_size() + n + 4 * rows
     res = {}
-    for name, fn, plain in (
-            ("quantize_blocked", lambda: oq.quantize_blocked(x),
-             lambda: quantize_blocked_ref(x)),
-            ("dequantize_blocked", lambda: oq.dequantize_blocked(q, s, meta),
-             lambda: dequantize_blocked_ref(q, s, meta))):
+    for name, fn, plain in calls:
         res[name] = {"ms": events_ms(fn, 10, inner=10),
-                     "device_ms": device_ms(fn),
                      "plain_ms": events_ms(plain, 5, inner=2),
                      "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                      "bytes": moved, "shape": list(shape),
@@ -1651,9 +1859,10 @@ def _spy_quant(fn, shapes):
 
 
 def _spy(fn, name, shapes):
-    def call(pool, idx, *rest):
-        shapes[(name, tuple(pool.shape), str(pool.dtype), len(idx))] += 1
-        return fn(pool, idx, *rest)
+    def call(leaves, idx, *rest, **kw):
+        shapes[(name, tuple(tuple(x.shape) for x in leaves),
+                tuple(str(x.dtype) for x in leaves), len(idx))] += 1
+        return fn(leaves, idx, *rest, **kw)
     return call
 
 
@@ -1669,6 +1878,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--fresh"]:
+        # a child of in_fresh_process: the last line is the phase's result
+        print(json.dumps(FRESH_PHASES[sys.argv[2]](*json.loads(sys.argv[3]))))
+        return 0
     # deterministic numerics, set before the first CUDA call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1685,20 +1898,29 @@ def main() -> int:
     log("[host_link] " + json.dumps(link))
 
     width = 22 * MAX_LEN * 4 * 64          # one slot's row of a KV leaf
-    serve_shapes = [(MAX_SEQUENCES, width, torch.bfloat16, k)
-                    for k in (2, 3, 4)]
-    worst = timed("check_kernels", check_kernels, serve_shapes + [
+    worst = timed("check_kernels", check_kernels, [
+        (MAX_SEQUENCES, width, torch.bfloat16, k) for k in (2, 3, 4)] + [
         (MAX_SEQUENCES, width, torch.float32, 3),
         (7, 1001, torch.bfloat16, 3),        # 2-byte rows: element path
         (5, 333, torch.float32, 2),          # 4-byte rows
         (6, 77, torch.uint8, 4)])            # 1-byte rows
+    worst = max(worst, timed("check_leaves", check_leaves, [
+        (TINYLLAMA_LEAVES, 2, 0), (TINYLLAMA_LEAVES, 3, 0),
+        (TINYLLAMA_LEAVES[:1], 2, 0), (MAMBA_LEAVES, 2, 0),
+        (MAMBA_LEAVES, 3, 0), (MAMBA_LEAVES[3:], 2, 0),
+        (ODD_LEAVES, 3, 0), (ODD_LEAVES, 3, 1)]))
     timed("check_decode", check_decode_on_small_input)
 
-    timings = {}
-    for n, w, dtype, k in serve_shapes:
-        timings[k] = time_kernels(n, w, dtype, k)
-        log(f"[time] pool ({n}, {w}) {dtype} K={k}: "
-            + json.dumps(timings[k]))
+    # the batched transfer as the engine makes it, K = 2 (most batched
+    # transfers of both serves): TinyLlama's two leaves, and Mamba-2's fp32
+    # state leaf, 99 % of its bytes
+    kv_times = {
+        "tinyllama": timed("time_leaves", time_leaves, TINYLLAMA_LEAVES, 2),
+        "mamba2_state": timed("time_leaves_state", time_leaves,
+                              MAMBA_LEAVES[3:], 2)}
+    for name, t in kv_times.items():
+        log(f"[time] kv {name}: " + json.dumps(t))
+    torch.cuda.empty_cache()
 
     result = timed("serve", serve, MachineProfile())
     timed("profile_decode", profile_decode, result["eng"])
@@ -1711,7 +1933,6 @@ def main() -> int:
     tf128 = timed("time_flash_d128", time_flash, FLASH_D128, False)
     bud = result["runs"]["budgeted"]
     serve_launches = bud["launches"]
-    serve_shapes_seen = bud["shapes"]
     del result, bud
     torch.cuda.empty_cache()
 
@@ -1719,9 +1940,18 @@ def main() -> int:
     ssd_errs = timed("check_ssd", check_ssd)
     ssm = timed("serve_ssm", serve, MachineProfile(), SSM_ARCH)
     ssm_serve = ssm["runs"]["budgeted"]
-    if not any(dtype == "torch.float32" and k > 1
-               for (_, _, dtype, k) in ssm_serve["shapes"]):
+    if not any("torch.float32" in dtypes and k > 1
+               for (_, _, dtypes, k) in ssm_serve["shapes"]):
         raise AssertionError("no batched launch moved the fp32 SSM state")
+    gap = (ssm_serve["max_memory_allocated"]
+           - ssm["runs"]["golden"]["max_memory_allocated"])
+    if gap > SSM_SWAP_PEAK_GAP:
+        raise AssertionError(f"the budgeted Mamba-2 serve allocated {gap} B "
+                             "over the golden run: more than one batched "
+                             f"transfer's rows ({SSM_SWAP_PEAK_GAP} B)")
+    restore = {arch: timed(f"profile_restore {arch}", in_fresh_process,
+                           "profile_restore", arch)
+               for arch in (ARCH, SSM_ARCH)}
     timed("profile_decode_ssm", profile_decode, ssm["eng"])
     timed("check_decode_ssm", check_decode_on_small_input, SSM_ARCH)
     ssm_pre = timed("prefill_ssm", prefill, ssm["eng"],
@@ -1748,29 +1978,31 @@ def main() -> int:
     (shape, dtype), _ = max(tt["quantized_shapes_raw"].items(),
                             key=lambda kv: (kv[1], math.prod(kv[0][0])))
     qt = timed("time_quant", time_quant, shape, getattr(torch, dtype))
+    qt_dev = timed("quant_device_ms", in_fresh_process, "quant_device_ms",
+                   shape, dtype)
+    log("[time] quant device ms " + json.dumps(qt_dev))
     torch.cuda.empty_cache()
 
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
-        ks = collections.Counter()
-        for (kname, _, _, k), c in serve_shapes_seen.items():
-            if kname == name:
-                ks[k] += c
-        k_main = ks.most_common(1)[0][0] if ks else 2
-        t = timings.get(k_main, timings[2])
+        tl = kv_times["tinyllama"]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
             "launches": serve_launches[name],
             "max_abs_err": worst,
-            "ms": t[name]["ms"], "plain_ms": t[name]["plain_ms"],
-            "bound_ms": t[name]["bound_ms"], "bound_by": "bytes",
-            "library_ms": t[name]["library_ms"],
-            "wrapper_ms": t[name]["wrapper_ms"],
-            "device_ms": t[name]["device_ms"],
-            "library_device_ms": t[name]["library_device_ms"],
-            "shape": [MAX_SEQUENCES, width, "bfloat16", k_main],
-            "launches_serve_ssm": ssm_serve["launches"][name]})
+            "ms": tl[name]["ms"], "plain_ms": tl[name]["plain_ms"],
+            "bound_ms": tl["bound_ms"], "bound_by": "bytes",
+            # no one call moves two leaves: one per leaf, back to back
+            "library_ms": tl[name]["library_ms"], "library_calls": 2,
+            "device_ms": tl[name]["device_ms"],
+            "library_device_ms": tl[name]["library_device_ms"],
+            "shape": {"leaves": tl["leaves"], "k": tl["k"]},
+            "launches_serve_ssm": ssm_serve["launches"][name],
+            "mamba2_state": kv_times["mamba2_state"][name],
+            "mamba2_state_bound_ms": kv_times["mamba2_state"]["bound_ms"],
+            "restore_device_busy_ms": {
+                arch: r["device_busy_ms"] for arch, r in restore.items()}})
     b, sq, _, h, kvh, d, _, _, _ = FLASH_PREFILL
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1794,7 +2026,7 @@ def main() -> int:
                                quant_main["max_abs_err"]),
             "ms": qt[name]["ms"], "plain_ms": qt[name]["plain_ms"],
             "bound_ms": qt[name]["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "device_ms": qt[name]["device_ms"],
+            "library_ms": None, "device_ms": qt_dev[name],
             "shape": qt[name]["shape"], "dtype": qt[name]["dtype"],
             "ms_64mib_fp32": quant_big[name]["ms"],
             "bound_ms_64mib_fp32": quant_big[name]["bound_ms"]})
@@ -1819,6 +2051,9 @@ def main() -> int:
         "count": torch.cuda.device_count()}}))
     return 0
 
+
+FRESH_PHASES = {"profile_restore": profile_restore,
+                "quant_device_ms": quant_device_ms}
 
 if __name__ == "__main__":
     raise SystemExit(main())

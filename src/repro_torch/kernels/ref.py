@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-The KV row copies are straightforward row loops, independent of the kernel
-they check and of PyTorch's fused indexing operators; unlike the JAX
-oracles, the scatter writes into ``pool`` in place, as the kernel does.
+The KV row copies of a 2-D pool are straightforward row loops,
+independent of the kernel they check and of PyTorch's fused indexing
+operators; the leaf forms are ``index_select``/``index_copy_`` along the
+slot axis.  Unlike the JAX oracles, the scatter writes into ``pool`` in
+place, as the kernel does.
 ``flash_attention_ref`` is the JAX oracle's einsum attention, line for
 line, and ``ssd_intra_chunk_ref`` is its SSD oracle (with ``_segsum``),
 fp32 throughout, its prefix sums rounded as the CPU rounds them
@@ -86,23 +88,57 @@ def ssd_intra_chunk_ref(xc: torch.Tensor, dtc: torch.Tensor,
     return y, states
 
 
-def kv_block_gather_ref(pool: torch.Tensor,
-                        idx: Sequence[int]) -> torch.Tensor:
-    """pool: (N,W); idx: (K,) ints -> (K,W) copies of the rows ``idx``."""
-    out = torch.empty((len(idx), pool.shape[1]), dtype=pool.dtype,
-                      device=pool.device)
-    for k, i in enumerate(idx):
-        out[k].copy_(pool[int(i)])
-    return out
+def _leaf_args(pool, axis, other=None):
+    """(leaves, axes, others) of the one-leaf or list form of the KV
+    copies; a ``None`` axis is the 2-D row pool's."""
+    if torch.is_tensor(pool):
+        return [pool], [axis], [other]
+    axes = [axis] * len(pool) if axis is None or isinstance(axis, int) \
+        else list(axis)
+    return list(pool), axes, list(other) if other is not None else None
 
 
-def kv_block_scatter_ref(pool: torch.Tensor, idx: Sequence[int],
-                         blocks: torch.Tensor) -> torch.Tensor:
+def kv_block_gather_ref(pool, idx: Sequence[int], *, axis=None):
+    """pool: (N,W); idx: (K,) ints -> (K,W) copies of the rows ``idx``.
+
+    With ``axis``, pool is a cache leaf with its slot on that axis, and the
+    result the contiguous (K, *shape[:axis], *shape[axis+1:]) tensor of
+    ``index_select`` along it; a list of leaves (``axis`` one int or one
+    per leaf) gives the list of results."""
+    leaves, axes, _ = _leaf_args(pool, axis)
+    outs = []
+    for leaf, a in zip(leaves, axes):
+        if a is None:
+            out = torch.empty((len(idx), leaf.shape[1]), dtype=leaf.dtype,
+                              device=leaf.device)
+            for k, i in enumerate(idx):
+                out[k].copy_(leaf[int(i)])
+        else:
+            rows = torch.tensor([int(i) for i in idx], dtype=torch.long,
+                                device=leaf.device)
+            out = leaf.index_select(a, rows).movedim(a, 0).contiguous()
+        outs.append(out)
+    return outs[0] if torch.is_tensor(pool) else outs
+
+
+def kv_block_scatter_ref(pool, idx: Sequence[int], blocks, *, axis=None):
     """pool: (N,W); idx: (K,) ints; blocks: (K,W).  Writes ``blocks[k]``
     into row ``idx[k]`` of ``pool`` in place and returns ``pool``; every
-    other row is untouched."""
-    for k, i in enumerate(idx):
-        pool[int(i)].copy_(blocks[k])
+    other row is untouched.
+
+    With ``axis`` (and a list of leaves), the inverse of
+    ``kv_block_gather_ref``: each block, (K, *shape[:axis],
+    *shape[axis+1:]), goes into its leaf by ``index_copy_`` along ``axis``,
+    in place."""
+    leaves, axes, srcs = _leaf_args(pool, axis, blocks)
+    for leaf, a, src in zip(leaves, axes, srcs):
+        if a is None:
+            for k, i in enumerate(idx):
+                leaf[int(i)].copy_(src[k])
+        else:
+            rows = torch.tensor([int(i) for i in idx], dtype=torch.long,
+                                device=leaf.device)
+            leaf.index_copy_(a, rows, src.movedim(0, a))
     return pool
 
 

@@ -24,8 +24,11 @@ pressure is **bit-identical** to the unpressured run.
 Differences from the JAX engine, none of which changes a decision or a
 token: the cache is updated in place; host shadows are copies (pinned
 host memory when the cache is on the card), never views of the live cache;
-prompts are drawn with numpy; and the batched path moves rows through the
-hand-written kernels of ``kernels/kv_block_copy.py``.
+prompts are drawn with numpy; and the batched path moves the rows of
+every cache leaf in one launch of the hand-written kernels of
+``kernels/kv_block_copy.py``, which read and write the leaves in place
+(the JAX engine moves each leaf's slot axis to the front, a copy of the
+leaf, to make a row pool).
 """
 
 from __future__ import annotations
@@ -209,35 +212,32 @@ class ServingEngine:
             return None
         return spec.length - (1 if spec.batch < spec.length else 0)
 
-    @staticmethod
-    def _row_pool(leaf: torch.Tensor, spec: _LeafAxes):
-        """The leaf as a contiguous (slots, W) row pool.  The LM cache
-        keeps the batch on axis 1, so this is a copy of the leaf; a scatter
-        into it reaches the cache only when written back
-        (``_restore_slots``)."""
-        moved = leaf.movedim(spec.batch, 0).contiguous()
-        return moved, moved.view(moved.shape[0], -1)
+    def _slotted(self) -> Tuple[List[int], List[torch.Tensor], List[int]]:
+        """The cache leaves that hold a slot axis: their tree indices, the
+        leaves, and their slot axes."""
+        ids = [i for i, spec in enumerate(self._axes)
+               if spec.batch is not None]
+        leaves = self._leaves()
+        return ids, [leaves[i] for i in ids], [self._axes[i].batch
+                                               for i in ids]
 
     def _save_slots(self, states: List[SeqState]) -> int:
-        """Batched shadow save: one ``kv_block_gather`` launch per cache
-        leaf moves every slot's row at once, then per-state occupied
-        prefixes are sliced out in the per-slot shadow format (so either
-        restore path can consume them).  Returns bytes copied."""
+        """Batched shadow save: one ``kv_block_gather`` launch moves every
+        slot's row of every cache leaf at once, read in place from the
+        cache, then per-state occupied prefixes are sliced out in the
+        per-slot shadow format (so either restore path can consume them).
+        Returns bytes copied."""
         todo = [s for s in states if s.rid not in self._shadow]
         if not todo:
             return 0
         if len(todo) == 1:
             return self._save_slot(todo[0])
-        slots = [s.slot for s in todo]
+        ids, leaves, axes = self._slotted()
+        gathered = kv_block_gather(leaves, [s.slot for s in todo], axis=axes)
         shadows: Dict[str, Dict[int, torch.Tensor]] = {s.rid: {} for s in todo}
         nbytes = 0
-        for i, (leaf, spec) in enumerate(zip(self._leaves(), self._axes)):
-            if spec.batch is None:
-                continue
-            moved, pool = self._row_pool(leaf, spec)
-            rows = kv_block_gather(pool, slots).view(
-                (len(todo),) + moved.shape[1:])
-            red = self._reduced_axis(spec)
+        for i, rows in zip(ids, gathered):
+            red = self._reduced_axis(self._axes[i])
             for k, s in enumerate(todo):
                 row = rows[k]
                 if red is not None:
@@ -250,26 +250,23 @@ class ServingEngine:
         return nbytes
 
     def _restore_slots(self, states: List[SeqState]) -> int:
-        """Batched shadow restore: per cache leaf, gather the cohort's
-        current rows in one launch, patch each occupied prefix from its
-        shadow, scatter the rows back in one launch, and write the pool
-        back into the leaf.  Suffix regions round-trip their own bytes, so
-        the result is bit-identical to per-slot ``_restore_slot`` calls.
-        Returns bytes written."""
+        """Batched shadow restore: gather the cohort's current rows of
+        every cache leaf in one launch, patch each occupied prefix from its
+        shadow, and scatter the rows back into the cache in one launch.
+        Suffix regions round-trip their own bytes, so the result is
+        bit-identical to per-slot ``_restore_slot`` calls.  Returns bytes
+        written."""
         todo = [s for s in states if s.rid in self._shadow]
         if not todo:
             return 0
         if len(todo) == 1:
             return self._restore_slot(todo[0])
+        ids, leaves, axes = self._slotted()
         slots = [s.slot for s in todo]
+        gathered = kv_block_gather(leaves, slots, axis=axes)
         nbytes = 0
-        for i, (leaf, spec) in enumerate(zip(self._leaves(), self._axes)):
-            if spec.batch is None:
-                continue
-            moved, pool = self._row_pool(leaf, spec)
-            rows = kv_block_gather(pool, slots).view(
-                (len(todo),) + moved.shape[1:])
-            red = self._reduced_axis(spec)
+        for i, rows in zip(ids, gathered):
+            red = self._reduced_axis(self._axes[i])
             for k, s in enumerate(todo):
                 arr = self._shadow[s.rid].get(i)
                 if arr is None:
@@ -278,9 +275,7 @@ class ServingEngine:
                 dst = rows[k] if red is None else rows[k].narrow(red, 0,
                                                                  s.pos)
                 dst.copy_(arr)
-            kv_block_scatter(pool, slots, rows.view(len(todo), -1))
-            if moved.data_ptr() != leaf.data_ptr():   # the pool is a copy
-                leaf.copy_(moved.movedim(0, spec.batch))
+        kv_block_scatter(leaves, slots, gathered, axis=axes)
         for s in todo:
             self._shadow.pop(s.rid, None)
         return nbytes
@@ -338,8 +333,9 @@ class ServingEngine:
         others = [st for rid, st in self._states.items()
                   if rid not in cohort_ids]
         if self._batch_kv:
-            # batched data path: one gather/scatter launch set per turn
-            # moves the whole cohort's blocks (and shadows every bystander)
+            # batched data path: one gather (and one scatter) launch per
+            # transfer moves the whole cohort's rows of every cache leaf
+            # (and shadows every bystander)
             self._xfer(lambda: self._restore_slots(cohort))
             self._xfer(lambda: self._save_slots(others))
         else:

@@ -4,7 +4,8 @@ JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances: 0 for the KV row copies (a copy must not change a bit); the
+Tolerances: 0 for the KV row copies (a copy must not change a bit: they
+are compared byte for byte, NaN payloads included); the
 JAX reference's 2e-5 (fp32) and 2e-2 (bf16) for flash attention
 (``tests/test_kernels.py:34``); its 1e-4 for the SSD intra-chunk kernel
 (``tests/test_kernels.py:51-68``); 0 for the blocked int8 quantize and
@@ -52,6 +53,94 @@ def test_cuda_kernel_matches_plain_version(n, w, dtype, k):
     assert torch.equal(got, want)
     assert (kbc.kv_block_gather.launches, kbc.kv_block_scatter.launches) \
         == (g0 + 1, s0 + 1)
+
+
+# (shape, dtype, slot axis) of each leaf of one call: both models' full
+# serving caches (4 slots), Mamba-2's fp32 state alone (75.5 MB rows), and
+# leaves whose segments are not 16-byte multiples
+LEAF_LAYOUTS = {
+    "tinyllama": [((22, 4, 32, 4, 64), torch.bfloat16, 1)] * 2,
+    "mamba2": [((48, 4, 3, 128), torch.bfloat16, 1),
+               ((48, 4, 3, 128), torch.bfloat16, 1),
+               ((48, 4, 3, 3072), torch.bfloat16, 1),
+               ((48, 4, 48, 64, 128), torch.float32, 1)],
+    "mamba2_state": [((48, 4, 48, 64, 128), torch.float32, 1)],
+    "unaligned": [((3, 5, 7, 11), torch.bfloat16, 1),
+                  ((2, 5, 33333), torch.bfloat16, 1),
+                  ((6, 77), torch.uint8, 0),
+                  ((4, 9, 13), torch.float32, 2)],
+}
+
+
+def _random_bits(shape, dtype, rng, offset: int = 0) -> torch.Tensor:
+    """A contiguous card tensor of random bytes (NaN payloads included),
+    its base ``offset`` elements past its allocation's."""
+    item = torch.empty((), dtype=dtype).element_size()
+    n = (int(np.prod(shape)) + offset) * item
+    raw = torch.from_numpy(rng.integers(0, 256, n, dtype=np.uint8)).cuda()
+    return raw.view(dtype)[offset:].view(shape)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                              b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,k,offset", [
+    ("tinyllama", 2, 0), ("tinyllama", 3, 0), ("mamba2", 2, 0),
+    ("mamba2", 3, 0), ("mamba2_state", 2, 0), ("unaligned", 3, 0),
+    ("unaligned", 3, 1),                 # bases off 16-byte alignment
+])
+def test_cuda_leaf_copies_match_plain_versions(layout, k, offset):
+    """One gather and one scatter call move every leaf of the layout,
+    read and written in place, bit-exact against the plain versions, with
+    one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(0)
+    spec = LEAF_LAYOUTS[layout]
+    leaves = [_random_bits(s, dt, rng, offset) for s, dt, _ in spec]
+    axes = [a for _, _, a in spec]
+    idx = rng.permutation(min(s[a] for s, _, a in spec))[:k].tolist()
+    g0, s0 = kbc.kv_block_gather.launches, kbc.kv_block_scatter.launches
+    got = kbc.kv_block_gather(leaves, idx, axis=axes)
+    want = kv_block_gather_ref(leaves, idx, axis=axes)
+    blocks = [_random_bits(w.shape, w.dtype, rng) for w in want]
+    mine = [leaf.clone() for leaf in leaves]
+    ptrs = [m.data_ptr() for m in mine]
+    assert kbc.kv_block_scatter(mine, idx, blocks, axis=axes) is mine
+    plain = kv_block_scatter_ref([leaf.clone() for leaf in leaves], idx,
+                                 blocks, axis=axes)
+    torch.cuda.synchronize()
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert all(_same_bits(m, p) for m, p in zip(mine, plain))
+    assert [m.data_ptr() for m in mine] == ptrs
+    assert (kbc.kv_block_gather.launches, kbc.kv_block_scatter.launches) \
+        == (g0 + 1, s0 + 1)
+
+
+@pytest.mark.cuda
+def test_one_wrapper_call_is_one_kernel_and_no_upload():
+    """A profile of one gather call, and of one scatter call, over both of
+    TinyLlama's cache leaves shows one kernel and no host-to-device copy:
+    the indices travel in the kernel's parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(0)
+    leaves = [_random_bits(s, dt, rng)
+              for s, dt, _ in LEAF_LAYOUTS["tinyllama"]]
+    rows = kbc.kv_block_gather(leaves, [0, 2], axis=1)      # build, warm up
+    torch.cuda.synchronize()
+    for call in (lambda: kbc.kv_block_gather(leaves, [0, 2], axis=1),
+                 lambda: kbc.kv_block_scatter(leaves, [0, 2], rows, axis=1)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and "copy_" in names[0], names
 
 
 @pytest.mark.cuda

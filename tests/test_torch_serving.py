@@ -125,9 +125,10 @@ def test_batched_run_takes_the_cpu_gather_scatter_path(engines, trace6,
     seen = []
 
     def spy(fn, name):
-        def call(pool, idx, *rest):
-            seen.append((name, pool.device.type, len(idx)))
-            return fn(pool, idx, *rest)
+        def call(leaves, idx, *rest, **kw):
+            seen.append((name, {leaf.device.type for leaf in leaves},
+                         len(idx), len(leaves)))
+            return fn(leaves, idx, *rest, **kw)
         return call
 
     monkeypatch.setattr(serving_engine, "kv_block_gather",
@@ -137,11 +138,51 @@ def test_batched_run_takes_the_cpu_gather_scatter_path(engines, trace6,
     launches = (kbc.kv_block_gather.launches, kbc.kv_block_scatter.launches)
     teng.serve(trace6, budget_bytes=BUDGET, engine=_mem(True),
                batch_transfers=True)
-    assert {n for n, _, _ in seen} == {"gather", "scatter"}
-    assert all(dev == "cpu" and k >= 2 for _, dev, k in seen)
+    assert {n for n, _, _, _ in seen} == {"gather", "scatter"}
+    assert all(dev == {"cpu"} and k >= 2 for _, dev, k, _ in seen)
+    # one call moves every cache leaf that holds a slot
+    assert {n for _, _, _, n in seen} == {len(teng._slotted()[1])}
     # the CPU path is the plain version: no kernel launched, none counted
     assert (kbc.kv_block_gather.launches,
             kbc.kv_block_scatter.launches) == launches
+
+
+def test_batched_transfers_move_the_cache_in_place(engines, trace6,
+                                                   monkeypatch):
+    """Every batched save and restore hands the kernels the cache's own
+    leaves and reads and writes them in place (no leaf is copied whole, and
+    no leaf's storage is replaced), and the served tokens are the reference
+    engine's."""
+    jeng, teng = engines
+    ptrs = [leaf.data_ptr() for leaf in teng._leaves()]
+    after = []
+    for name in ("_save_slots", "_restore_slots"):
+        def wrapped(states, fn=getattr(teng, name)):
+            moved = fn(states)
+            after.append([leaf.data_ptr() for leaf in teng._leaves()])
+            return moved
+        monkeypatch.setattr(teng, name, wrapped)
+    calls = []
+
+    def spy(fn):
+        def call(leaves, idx, *rest, **kw):
+            # the cache's own leaves, not copies of them
+            cache = teng._leaves()
+            assert all(any(leaf is c for c in cache) for leaf in leaves)
+            calls.append(fn.__name__)
+            return fn(leaves, idx, *rest, **kw)
+        return call
+
+    for name in ("kv_block_gather", "kv_block_scatter"):
+        monkeypatch.setattr(serving_engine, name,
+                            spy(getattr(serving_engine, name)))
+    _, out_j = jeng.serve(trace6, budget_bytes=BUDGET, engine=_mem(False),
+                          batch_transfers=True)
+    _, out_t = teng.serve(trace6, budget_bytes=BUDGET, engine=_mem(True),
+                          batch_transfers=True)
+    assert out_t == out_j
+    assert set(calls) == {"kv_block_gather", "kv_block_scatter"}
+    assert after and all(p == ptrs for p in after)
 
 
 def test_prefill_insert_generate_match_the_reference(engines):
