@@ -30,14 +30,18 @@ random weights from seed 0):
    shape and at a D 128 shape, each beside ``scaled_dot_product_attention``,
    with the bf16 kernel's ptxas registers and spills.
 3. Mamba-2 780M, the SSM slice: the SSD intra-chunk kernel against its
-   plain version at the reference's sweep, a ragged chunk and the
-   prefill's shape (``check_ssd``); the serve pair as above, whose
+   plain version at the reference's sweep, a ragged chunk, the kernel's
+   edges and the prefill's shape, two calls bit-identical (``check_ssd``);
+   the serve pair as above, whose
    budgeted run swaps the positionless SSM state through both KV kernels
    (``serve_ssm``); the decode step's profile; the prefill (B 4, S 2048)
    through the kernel, once per layer, against the plain chunked path
    (``prefill_ssm``); 4 train steps (B 4, S 1024) on the plain path
    (``train_ssm``); reduced fp32 decode, forward and train step
-   card-vs-CPU; and the kernel's times (``time_ssd``).
+   card-vs-CPU; the kernel's times (``time_ssd``) and, in a fresh
+   process, its device time, one device kernel per call
+   (``ssd_device_ms``); with its ptxas registers and spills and its SASS
+   tensor-core instruction counts.
 4. TENSILE, the paper's own loop: the quantize/dequantize kernels
    bit-exact against their plain versions (``check_quant``); the
    quickstart MLP captured, planned and executed, its executor peak and
@@ -121,6 +125,7 @@ from repro_torch.serving.session import SeqState  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # dense bf16 tensor-core peak, same sheet
 FP32_FLOPS_PER_S = 67e12       # fp32 outside the tensor cores, same sheet
+TF32_FLOPS_PER_S = 495e12      # dense TF32 tensor-core peak, same sheet
 ARCH = "tinyllama-1.1b"
 SSM_ARCH = "mamba2-780m"
 MAX_SEQUENCES, PROMPT_LEN, GEN_LEN, N_REQUESTS = 4, 16, 16, 8
@@ -212,23 +217,44 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (2^-8 of a value each).  fp32 end to end: summation order only.
 PREFILL_REL_TOL = {"bf16": 0.5, "bf16_layer": 0.02, "fp32": 1e-3}
 # (B, NC, Q, H, P, N, x dtype): the reference's sweep (tests/test_kernels.py:
-# 51-55), a ragged chunk, and Mamba-2 780M's prefill (B 4 x S 2048 in chunks
-# of 256; 48 heads of 64, state 128) with bf16 x as the path gives it
+# 51-55) and a ragged chunk, in fp32 (the CUDA-core kernel) and bf16 (the
+# tensor-core kernel), and Mamba-2 780M's prefill (B 4 x S 2048 in chunks
+# of 256; 48 heads of 64, state 128) with bf16 x as the path gives it; then
+# the kernels' edges: Q 1 and 255, P padded (40 to 64) and at 128, rows
+# that are not 16-byte multiples (P 20 in bf16, N 18: plain-load staging),
+# heads in two ragged groups (13: 7 and 6), and N over one pass of the state
 SSD_SWEEP = [(2, 3, 64, 4, 16, 32, torch.float32),
              (1, 2, 128, 2, 64, 128, torch.float32),
              (1, 5, 32, 8, 64, 16, torch.float32),
-             (1, 1, 200, 4, 64, 128, torch.float32)]
+             (1, 1, 200, 4, 64, 128, torch.float32),
+             (2, 3, 64, 4, 16, 32, torch.bfloat16),
+             (1, 2, 128, 2, 64, 128, torch.bfloat16),
+             (1, 5, 32, 8, 64, 16, torch.bfloat16),
+             (1, 1, 200, 4, 64, 128, torch.bfloat16),
+             (1, 1, 1, 4, 64, 128, torch.bfloat16),
+             (1, 2, 255, 6, 64, 128, torch.bfloat16),
+             (1, 2, 255, 6, 64, 128, torch.float32),
+             (1, 2, 96, 3, 40, 64, torch.bfloat16),
+             (1, 1, 256, 4, 128, 64, torch.bfloat16),
+             (1, 1, 192, 2, 128, 200, torch.bfloat16),
+             (1, 1, 130, 2, 20, 18, torch.bfloat16),
+             (1, 1, 130, 2, 20, 18, torch.float32),
+             (1, 1, 128, 13, 32, 32, torch.bfloat16),
+             (1, 1, 64, 2, 64, 160, torch.bfloat16)]
 SSD_PREFILL = (PREFILL_B, PREFILL_S // 256, 256, 48, 64, 128, torch.bfloat16)
 SSD_TOL = 1e-4                 # rtol = atol, tests/test_kernels.py:66-68
 # Kernel vs plain chunked SSD prefill of Mamba-2 780M, as max |diff| / max
-# |reference|; PERF.md section 2 gives the measurements behind each.  On the
-# H100 every reading is 0 (both paths round the prefix sums alike and the
-# plain path's products accumulate in the kernel's order), so the limits
-# come from the kernel's own 1e-4: in fp32 end to end, that 1e-4; per bf16
-# layer, two bf16 ulps of the largest value (a 1e-4 error in y flips at
-# most one ulp of the mixer's output, and the layer's output rounds once
-# more); end to end in bf16, the flash limit, since flipped ulps grow
-# through the random layers
+# |reference|; PERF.md section 2 gives the measurements behind each.  The
+# limits were set from the kernel's own 1e-4 when the CUDA-core kernel read
+# 0 on all three (both paths rounded alike): in fp32 end to end, that 1e-4;
+# per bf16 layer, two bf16 ulps of the largest value (a 1e-4 error in y
+# flips at most one ulp of the mixer's output, and the layer's output
+# rounds once more); end to end in bf16, the flash limit, since flipped
+# ulps grow through the random layers.  The bf16 kernel now sums on the
+# tensor cores (3xTF32) and the H100 reads 0.4773 end to end and 0.00578
+# per layer, 95 % and 74 % of the limits; fp32 x keeps the plain path's
+# order and reads 0.  No control reading shows that the two bf16 gates fail
+# a kernel of lower precision: check_ssd's 1e-4 is the check that does
 SSM_PREFILL_REL_TOL = {"bf16": 0.5, "bf16_layer": 2.0 ** -7, "fp32": SSD_TOL}
 # (shape, dtype, slot axis) of the slotted cache leaves of each model at
 # the serve's 4 slots and MAX_LEN positions, in the engine's (sorted) order
@@ -249,7 +275,7 @@ ODD_LEAVES = [((3, 5, 7, 11), torch.bfloat16, 1),
 SSM_SWAP_PEAK_GAP = 160_000_000
 # the device kernels each prefill kernel's wrapper launches, by name
 KERNEL_NAMES = {fa.flash_attention_fwd: ("flash_fwd",),
-                ss.ssd_intra_chunk_fwd: ("ssd_y", "ssd_state")}
+                ss.ssd_intra_chunk_fwd: ("ssd_fwd",)}
 
 
 def log(msg: str) -> None:
@@ -903,27 +929,46 @@ def time_flash(shape=FLASH_PREFILL, plain: bool = True) -> dict:
     return res
 
 
-def flash_build_report(built: dict) -> dict:
-    """What the flash library was compiled to: ptxas registers, stack and
-    spills of each kernel instantiation, as name<template arguments> (from
-    this run's build log; empty when the library was already built), and
-    the count of tensor-core instructions in its SASS (``cuobjdump``)."""
+def kernel_label(mangled: str, kernel: str):
+    """``kernel<template arguments>`` of a mangled instantiation of
+    ``kernel`` (integer, bool, float or bf16 arguments), or None."""
+    m = re.search(rf"({kernel}\w*?)I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E",
+                  mangled)
+    if not m:
+        return None
+    args = [a if a else ("bf16" if b else "f32") for a, b in re.findall(
+        r"L[ib](\d+)E|(13__nv_bfloat16)|f", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def build_report(built: dict, lib: str, kernel: str,
+                 ops=("HGMMA", "HMMA", "UTMALDG")) -> dict:
+    """What the library ``lib`` was compiled to: ptxas registers, stack and
+    spills of each instantiation of ``kernel``, as name<template arguments>
+    (from this run's build log; empty when the library was already built),
+    and the count of each of ``ops`` (tensor-core and TMA instructions) in
+    its SASS (``cuobjdump``), over the library and per instantiation."""
     ptxas = {}
-    for name, use in ptxas_usage(built["flash_attention"].log).items():
-        m = re.search(r"(flash_fwd\w*?)I((?:L[ib]\d+E)+)E", name)
-        if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
-            ptxas[f"{m.group(1)}<{args}>"] = use
+    for name, use in ptxas_usage(built[lib].log).items():
+        label = kernel_label(name, kernel)
+        if label:
+            ptxas[label] = use
     out = {"ptxas": ptxas, "sass": None}
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     if os.path.exists(cuobjdump):
-        sass = subprocess.run([cuobjdump, "-sass",
-                               str(built["flash_attention"].path)],
+        sass = subprocess.run([cuobjdump, "-sass", str(built[lib].path)],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
         out["sass"] = {op: len(re.findall(rf"\b{op}\.", sass))
-                       for op in ("HGMMA", "HMMA", "UTMALDG")}
-    log("[build] flash_attention " + json.dumps(out))
+                       for op in ops}
+        per = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            label = kernel_label(part.split(None, 1)[0], kernel)
+            if label:
+                per[label] = {op: len(re.findall(rf"\b{op}\.", part))
+                              for op in ops}
+        out["sass_per_kernel"] = per
+    log(f"[build] {lib} " + json.dumps(out))
     return out
 
 
@@ -956,16 +1001,20 @@ def ssd_inputs(shape, seed: int) -> list:
 
 
 def check_ssd() -> dict:
-    """The SSD kernel against ``ssd_intra_chunk_ref`` on the card at the
-    reference's sweep, a ragged chunk and the prefill's shape, inputs from
-    numpy seed 0, within rtol = atol = SSD_TOL on both outputs.  Returns
-    per shape the largest absolute difference and the largest share of the
-    tolerance, |diff| / (atol + rtol |ref|) (at most 1 when it passes)."""
+    """The SSD kernels (the tensor-core one for bf16 x, the CUDA-core one
+    for fp32 x) against ``ssd_intra_chunk_ref`` on the card at the
+    reference's sweep, a ragged chunk, the kernels' edges and the
+    prefill's shape, inputs from numpy seed 0, within rtol = atol = SSD_TOL
+    on both outputs; a second call on the same inputs must give the same
+    bits (no atomics, a fixed order of sums).  Returns per shape the
+    largest absolute difference and the largest share of the tolerance,
+    |diff| / (atol + rtol |ref|) (at most 1 when it passes)."""
     errs = {}
     for shape in SSD_SWEEP + [SSD_PREFILL]:
         args = ssd_inputs(shape, 0)
         with torch.inference_mode():
             got = ss.ssd_intra_chunk_fwd(*args)
+            again = ss.ssd_intra_chunk_fwd(*args)
             want = ssd_intra_chunk_ref(*args)
         torch.cuda.synchronize()
         err = max(max_abs_err(a, b) for a, b in zip(got, want))
@@ -981,51 +1030,82 @@ def check_ssd() -> dict:
                or not torch.allclose(a, b, rtol=SSD_TOL, atol=SSD_TOL)
                for a, b in zip(got, want)):
             raise AssertionError(f"ssd kernel differs at {shape}: {err}")
-        del args, got, want
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"two ssd calls differ at {shape}")
+        del args, got, again, want
     return errs
 
 
-def ssd_work(shape) -> tuple:
-    """(FLOP, bytes, FLOP of the full square) of the intra-chunk function
-    at ``shape``.  The FLOP it needs: C.B^T over the causal pairs j <= i
-    once per (batch, chunk), since the heads share B and C; the weighted
-    sum over the same pairs and the state product per head.  The bytes:
-    each input read and each output written once.  The full square is the
-    Q x Q tile per head that the Pallas grid computes."""
+def ssd_work(shape) -> dict:
+    """FLOP and bytes of the intra-chunk function at ``shape``.  The FLOP
+    it needs: C.B^T over the causal pairs j <= i once per (batch, chunk),
+    since the heads share B and C (``cb_flops``); the weighted sum over the
+    same pairs and the state product per head (``head_flops``).  The
+    bytes: each input read and each output written once.  The full square
+    is the Q x Q tile per head that the Pallas grid computes."""
     b, nc, q, h, p, n, dtype = shape
     pairs = q * (q + 1) // 2
-    flops = 2 * b * nc * (pairs * n + h * (pairs * p + q * n * p))
+    cb_flops = 2 * b * nc * pairs * n
+    head_flops = 2 * b * nc * h * (pairs * p + q * n * p)
     square = 2 * b * nc * (q * q * n + h * (q * q * p + q * n * p))
     x_bytes = 2 if dtype == torch.bfloat16 else 4
     nbytes = (b * nc * q * h * p * (x_bytes + 4) + 2 * b * nc * q * h * 4
               + 2 * b * nc * q * n * 4 + b * nc * h * p * n * 4)
-    return flops, nbytes, square
+    return {"flops": cb_flops + head_flops, "cb_flops": cb_flops,
+            "head_flops": head_flops, "bytes": nbytes, "square": square}
 
 
 def time_ssd() -> dict:
     """Times at the prefill's SSD shape: the kernel (CUDA events over
     back-to-back calls of the wrapper; its device time comes from the
-    prefill's profile) and its plain version.  No one PyTorch call computes this
-    function, so there is no library time.  The bound is the larger of the
-    FLOP over the fp32 peak (the 1e-4 tolerance keeps the arithmetic in
-    fp32) and the bytes over the HBM rate (``ssd_work``)."""
+    prefill's profile and from ``ssd_device_ms``) and its plain version.
+    No one PyTorch call computes this function, so there is no library
+    time.  The bound is that of the route bf16 x takes, the larger of the
+    bytes over the HBM rate and its products at the TF32 tensor-core peak:
+    operands split hi + lo, three products for C.B^T (both operands fp32),
+    two for W.X and the state product (bf16 x is exact in TF32, its lo 0).
+    Beside it the bound of fp32 on the CUDA cores, the FLOP over the fp32
+    peak.  TFLOP/s counts the FLOP the function needs, and each share is a
+    bound over the measured time."""
+    assert SSD_PREFILL[-1] == torch.bfloat16
     args = ssd_inputs(SSD_PREFILL, 1)
-    flops, nbytes, square = ssd_work(SSD_PREFILL)
-    bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+    work = ssd_work(SSD_PREFILL)
+    flops, nbytes = work["flops"], work["bytes"]
+    bound_ops = ((3 * work["cb_flops"] + 2 * work["head_flops"])
+                 / TF32_FLOPS_PER_S * 1e3)
+    bound_fp32 = flops / FP32_FLOPS_PER_S * 1e3
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     with torch.inference_mode():
         res = {"ms": events_ms(lambda: ss.ssd_intra_chunk_fwd(*args), 10,
                                inner=5),
                "plain_ms": events_ms(lambda: ssd_intra_chunk_ref(*args), 5),
                "library_ms": None}
-    res.update(flops=flops, flops_full_square=square, bytes=nbytes,
-               bound_ms=max(bound_ops, bound_bytes),
+    bound = max(bound_ops, bound_bytes)
+    res.update(flops=flops, cb_flops=work["cb_flops"],
+               flops_full_square=work["square"], bytes=nbytes,
+               bound_ms=bound,
                bound_by="operations" if bound_ops >= bound_bytes else "bytes",
                ops_bound_ms=bound_ops, bytes_bound_ms=bound_bytes,
-               tflops=flops / (res["ms"] * 1e-3) / 1e12)
+               fp32_bound_ms=bound_fp32,
+               tflops=flops / (res["ms"] * 1e-3) / 1e12,
+               bound_share=bound / res["ms"],
+               fp32_bound_share=bound_fp32 / res["ms"])
     log("[time] ssd_intra_chunk_fwd " + json.dumps(
         {"shape": list(SSD_PREFILL[:6]) + ["bfloat16"], **res}))
     return res
+
+
+def ssd_device_ms() -> dict:
+    """Device ms per call of the SSD wrapper at the prefill's shape, from a
+    profiler trace (``device_ms``) that must hold exactly one device event
+    per call: a call is one kernel.  Deterministic algorithms are off here
+    (a fresh process), so the outputs get no NaN fill."""
+    args = ssd_inputs(SSD_PREFILL, 1)
+    with torch.inference_mode():
+        ms = device_ms(lambda: ss.ssd_intra_chunk_fwd(*args))
+    flops = ssd_work(SSD_PREFILL)["flops"]
+    return {"device_ms": ms, "events_per_call": 1,
+            "tflops": flops / (ms * 1e-3) / 1e12}
 
 
 def prefill(eng, kernel=fa.flash_attention_fwd, mix=_attention_mix,
@@ -1892,7 +1972,8 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"devices {torch.cuda.device_count()}")
     built = timed("build", build)
-    flash_build = flash_build_report(built)
+    flash_build = build_report(built, "flash_attention", "flash_fwd")
+    ssd_build = build_report(built, "ssd_scan", "ssd_fwd", ("HGMMA", "HMMA"))
 
     link = timed("host_link", measure_host_link)
     log("[host_link] " + json.dumps(link))
@@ -1961,6 +2042,8 @@ def main() -> int:
     timed("train_ssm", train, ssm["eng"])
     timed("check_train_step_ssm", check_train_step_on_small_input, SSM_ARCH)
     ts = timed("time_ssd", time_ssd)
+    ts_dev = timed("ssd_device_ms", in_fresh_process, "ssd_device_ms")
+    log("[time] ssd device ms " + json.dumps(ts_dev))
     del ssm
     torch.cuda.empty_cache()
 
@@ -2039,12 +2122,19 @@ def main() -> int:
         "ms": ts["ms"], "plain_ms": ts["plain_ms"],
         "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
         "library_ms": None, "device_ms": ssm_pre["kernel_device_ms"],
-        "bytes_bound_ms": ts["bytes_bound_ms"], "tolerance": SSD_TOL,
+        "device_ms_alone": ts_dev["device_ms"],
+        "ops_bound_ms": ts["ops_bound_ms"],
+        "bytes_bound_ms": ts["bytes_bound_ms"],
+        "fp32_bound_ms": ts["fp32_bound_ms"], "tflops": ts["tflops"],
+        "bound_share": ts["bound_share"],
+        "fp32_bound_share": ts["fp32_bound_share"],
+        "tolerance": SSD_TOL,
         "tolerance_share": max(e["tolerance_share"]
                                for e in ssd_errs.values()),
+        "tolerance_share_prefill": ssd_errs[SSD_PREFILL]["tolerance_share"],
         "max_abs_err_sweep": max(ssd_errs[sh]["max_abs_err"]
                                  for sh in SSD_SWEEP),
-        "shape": [b, nc, q, h, p, n, "bfloat16"]})
+        "shape": [b, nc, q, h, p, n, "bfloat16"], **ssd_build})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2053,7 +2143,8 @@ def main() -> int:
 
 
 FRESH_PHASES = {"profile_restore": profile_restore,
-                "quant_device_ms": quant_device_ms}
+                "quant_device_ms": quant_device_ms,
+                "ssd_device_ms": ssd_device_ms}
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -4,13 +4,14 @@ chunk and the chunk's contribution to the inter-chunk state, in one call.
 ``ssd_intra_chunk_fwd(xc, dtc, da, bc, cc)`` takes xc (B,NC,Q,H,P) in fp32
 or bf16, dtc and da (B,NC,Q,H) fp32 and bc, cc (B,NC,Q,N) fp32, with
 1 <= Q <= 256 and 1 <= P <= 128, and returns y_diag (B,NC,Q,H,P) and
-states (B,NC,H,P,N), both fp32.  On a CUDA tensor it launches the
-hand-written kernels of ``csrc/ssd_scan.cu`` (they replace the Pallas
-kernel ``ssd_intra_chunk_fwd`` of the JAX package's
-``kernels/ssd_scan.py``); on a CPU tensor it runs
-``ref.ssd_intra_chunk_ref``.  The wrapper counts its calls that launch in
-``.launches`` (one per call, though the call launches two kernels: y, then
-the state).
+states (B,NC,H,P,N), both fp32.  On a CUDA tensor it launches one
+hand-written kernel of ``csrc/ssd_scan.cu`` (they replace the Pallas kernel
+``ssd_intra_chunk_fwd`` of the JAX package's ``kernels/ssd_scan.py``): for
+bf16 x, ``ssd_fwd``, whose work items compute y for groups of heads over
+one C.B^T and the chunk states, with 3xTF32 products on the tensor cores;
+for fp32 x, ``ssd_fwd_simt``, fp32 sums on the CUDA cores in the plain
+path's order.  On a CPU tensor it runs ``ref.ssd_intra_chunk_ref``.  The
+wrapper counts its calls, one device kernel each, in ``.launches``.
 
 Forward only, as in the JAX package, where ``jax.grad`` through the Pallas
 call fails: with grad mode on and an input that requires grad it raises.

@@ -211,11 +211,26 @@ def test_flash_bf16_reads_views_and_copies_misaligned_inputs():
     (1, 2, 128, 2, 64, 128, torch.float32),
     (1, 5, 32, 8, 64, 16, torch.float32),
     (1, 1, 200, 4, 64, 128, torch.float32),    # ragged chunk
+    (1, 2, 255, 6, 64, 128, torch.float32),    # Q 255
+    (1, 1, 130, 2, 20, 18, torch.float32),     # P 20, N 18
+    # the tensor-core kernel (bf16 x)
+    (2, 3, 64, 4, 16, 32, torch.bfloat16),
+    (1, 1, 200, 4, 64, 128, torch.bfloat16),
     (1, 2, 256, 48, 64, 128, torch.bfloat16),  # Mamba-2 780M's heads
+    (1, 1, 1, 4, 64, 128, torch.bfloat16),     # Q 1
+    (1, 2, 255, 6, 64, 128, torch.bfloat16),   # Q 255
+    (1, 2, 96, 3, 40, 64, torch.bfloat16),     # P 40, padded to 64
+    (1, 1, 130, 2, 20, 18, torch.bfloat16),    # P 20, N 18: plain loads
+    (1, 1, 192, 2, 128, 200, torch.bfloat16),  # P 128, N over one pass
+    (1, 1, 128, 13, 24, 32, torch.bfloat16),   # P 24; 13 heads: 7 and 6
 ])
 def test_ssd_kernel_matches_plain_version(b, nc, q, h, p, n, dtype):
+    """Within the reference's 1e-4; a second call gives the same bits (no
+    atomics, a fixed order of sums), and a profile of one call holds one
+    device kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(0)
 
     def softplus(a):
@@ -231,12 +246,20 @@ def test_ssd_kernel_matches_plain_version(b, nc, q, h, p, n, dtype):
     n0 = ssd_scan.ssd_intra_chunk_fwd.launches
     with torch.inference_mode():
         y, st = ssd_scan.ssd_intra_chunk_fwd(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y2, st2 = ssd_scan.ssd_intra_chunk_fwd(*args)
+            torch.cuda.synchronize()
         y_ref, st_ref = ssd_intra_chunk_ref(*args)
     torch.cuda.synchronize()
-    assert ssd_scan.ssd_intra_chunk_fwd.launches == n0 + 1
+    assert ssd_scan.ssd_intra_chunk_fwd.launches == n0 + 2
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "ssd_fwd" in names[0], names   # either kernel
     assert y.dtype == st.dtype == torch.float32
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
 @pytest.mark.cuda
