@@ -43,7 +43,15 @@ random weights from seed 0):
    (``ssd_device_ms``); with its ptxas registers and spills and its SASS
    tensor-core instruction counts.
 4. TENSILE, the paper's own loop: the quantize/dequantize kernels
-   bit-exact against their plain versions (``check_quant``); the
+   bit-exact against their plain versions on every route of a compressed
+   swap (card to card, card to a packed pinned buffer, that buffer to the
+   card), from aligned tensors and from views one element into their
+   storage, the packed buffer written whole over a sentinel
+   (``check_quant``); their times card to card, and a compressed swap
+   each way by the executor's old route (staged on the card, two copies)
+   and its new one (one launch), in turns, beside the link bound
+   (``time_quant``); the host routes' CTA cap sweep
+   (``quant_cta_sweep``); the
    quickstart MLP captured, planned and executed, its executor peak and
    decision trace equal to the simulator's (``tensile_mlp``); then the
    full-width train step (B 4, S 1024, no block remat) captured on fake
@@ -52,9 +60,12 @@ random weights from seed 0):
    reaches, and executed for 3 iterations with swaps to pinned host memory
    on a copy stream (``tensile_train``).  The same budget's uncompressed
    ``tensile`` plan must give results bit-identical to the unscheduled
-   run, the compressed plan results within stated tolerances, and the
+   run, the compressed plan results within stated tolerances, the
    card's allocator peak must sit within 5 % of the executor's ledger
-   peak and below the unscheduled run's.
+   peak and below the unscheduled run's, each compressed swap must be one
+   kernel launch, and the profiled compressed step may copy between host
+   and card only for plain swaps, packed buffers above the zero-copy size
+   and the graph's own host constants.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -146,6 +157,17 @@ REPLACES = {"kv_block_gather": "src/repro/kernels/kv_block_copy.py:34",
 # row and one, the reference's (37, 129)) in each input dtype, and 64 MiB
 QUANT_SHAPES = [(1,), (511,), (513,), (37, 129)]
 QUANT_BIG = (16 << 20,)
+# a byte the packed buffer is filled with before a quantize writes it
+QUANT_SENTINEL = 0x5A
+# CTA counts of the host routes' cap sweep (132: one CTA per SM)
+QUANT_CTA_SWEEP = (4, 8, 16, 32, 64, 132)
+# fp32 lengths of the swap-in route ladder: packed buffers of 33 KB to
+# 16.9 MB
+QUANT_LADDER = tuple(1 << k for k in range(15, 25))
+# device events counted in the profiled compressed TENSILE step: the
+# copies of plain swaps, and the quantize and dequantize kernels
+PROFILED_SWAP_NAMES = ("Memcpy DtoH", "Memcpy HtoD", "::quantize_rows",
+                       "dequantize_rows")
 # the quickstart (examples/quickstart.py): its MLP, batch, planning profile
 # and the capture-time cost model the reference uses by default
 MLP_SIZES, MLP_BATCH = [256, 1024, 1024, 1024, 16], 64
@@ -325,28 +347,34 @@ def without_determinism():
         torch.use_deterministic_algorithms(det)
 
 
-def device_ms(fn, reps: int = 20, per_call: int = 1) -> float:
+def device_ms(fn, reps: int = 20, per_call: int = 1,
+              traces: int = 3) -> float:
     """Mean device time per call of ``fn``, which issues ``per_call``
     kernels and copies: their time summed from a ``torch.profiler`` trace
-    of ``reps`` calls, over ``reps``.  Raises unless the trace holds every
-    one of the ``reps * per_call`` events: after the first serve, traces
-    inside this script lose the earliest events of a window (PERF.md
-    section 7), so device times are taken before it, or in a fresh
-    process (``quant_device_ms``)."""
+    of ``reps`` calls, over ``reps``.  Only a trace that holds every one
+    of the ``reps * per_call`` events counts: after the first serve,
+    traces inside this script lose the earliest events of a window
+    (PERF.md section 7), so device times are taken before it, or in a
+    fresh process (``quant_device_ms``), where a trace has lost events
+    too, more rarely.  A trace that lost events is taken again, up to
+    ``traces`` in all; raises if none holds them all."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if len(events) != reps * per_call:
-        raise AssertionError(f"the profiler trace holds {len(events)} device "
-                             f"events, not {reps * per_call}")
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    seen = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(events) == reps * per_call:
+            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+        seen.append(len(events))
+    raise AssertionError(f"the profiler traces hold {seen} device events, "
+                         f"not {reps * per_call}")
 
 
 def wall_s(fn, reps: int) -> float:
@@ -1318,50 +1346,110 @@ def check_train_step_on_small_input(arch: str = ARCH) -> None:
 # ----------------------------------------------------------------------
 # TENSILE: quantize kernels, the quickstart MLP, the full-width train step
 # ----------------------------------------------------------------------
+def packed_buffer(n: int) -> torch.Tensor:
+    """A pinned packed buffer for ``n`` elements, as the executor allocates
+    one for a compressed swap-out (no deterministic fill)."""
+    return tensile_executor.empty_unfilled((oq.packed_bytes(n),), (1,),
+                                           torch.int8, pin=True)
+
+
+def packing(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The bytes a packed buffer must hold for rows ``q`` and scales ``s``,
+    on the host."""
+    return torch.cat([q.reshape(-1).cpu(),
+                      s.reshape(-1).cpu().view(torch.int8)])
+
+
+def quant_input(shape, dtype, gen, misaligned: bool) -> torch.Tensor:
+    """A seeded input on the card; with ``misaligned``, a contiguous view
+    one element into its storage (not 16-byte aligned)."""
+    n = math.prod(shape)
+    flat = (torch.randn(n + 1, generator=gen, device="cuda") * 3).to(dtype)
+    return (flat[1:] if misaligned else flat[:n].clone()).view(shape)
+
+
+def quant_out(shape, dtype, misaligned: bool) -> torch.Tensor:
+    n = math.prod(shape)
+    flat = torch.empty(n + 1, dtype=dtype, device="cuda")
+    return (flat[1:] if misaligned else flat[:n]).view(shape)
+
+
 def check_quant(cases=None) -> dict:
-    """Both quantize kernels against their plain versions on the card:
+    """Both quantize kernels against their plain versions on the card, on
+    every route of a swap: card to card (the reference's signature), card
+    to a packed pinned buffer, and that buffer to the card, read by the
+    kernel or first copied whole (the executor's two swap-in routes).
     int8 rows, scales and meta bit-exact, dequantized values exact, for
     fp32, bf16 and fp16 inputs at ragged lengths and one 64 MiB fp32
-    tensor (or at the ``(shape, dtype)`` pairs of ``cases``); fp32 round
+    tensor (or at the ``(shape, dtype)`` pairs of ``cases``), each once
+    from an aligned tensor and once from a view one element into its
+    storage (scalar path), with outputs placed alike.  The packed buffer is filled with a
+    sentinel first and must then hold the plain packing byte for byte:
+    the kernel writes every byte of it.  One launch per call.  fp32 round
     trips within the reference's bound (absmax/127 per element,
-    tests/test_kernels.py:71-82).  Returns the largest kernel vs
-    plain difference (0.0 when all pass) and the largest fp32 round-trip
-    error over its bound."""
+    tests/test_kernels.py:71-82).  Returns the largest kernel vs plain
+    difference (0.0 when all pass), the largest fp32 round-trip error over
+    its bound, and the sentinel bytes left where the packing differs."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst, worst_rt = 0.0, 0.0
+    worst, worst_rt, stray = 0.0, 0.0, 0
     if cases is None:
         cases = [(s, d) for d in (torch.float32, torch.bfloat16,
                                   torch.float16)
                  for s in QUANT_SHAPES] + [(QUANT_BIG, torch.float32)]
     for shape, dtype in cases:
-        x = (torch.randn(shape, generator=gen, device="cuda") * 3).to(dtype)
-        q, s, meta = oq.quantize_blocked(x)
-        qr, sr, mr = quantize_blocked_ref(x)
-        xk = oq.dequantize_blocked(q, s, meta)
-        xp = dequantize_blocked_ref(q, s, meta)
-        torch.cuda.synchronize()
-        worst = max(worst, max_abs_err(q, qr), max_abs_err(s, sr),
-                    max_abs_err(xk, xp))
-        same = {"q": torch.equal(q, qr), "s": torch.equal(s, sr),
-                "meta": meta == mr, "dequantized": torch.equal(xk, xp)
-                and xk.shape == x.shape}
-        if not all(same.values()):
-            raise AssertionError(f"quantize kernels differ at {shape} "
-                                 f"{dtype}: {same}, max_abs_err {worst}")
-        if dtype == torch.float32:
-            bound = (float(x.abs().max()) / 127.0 + 1e-7) * 1.01
-            err = max_abs_err(xk, x)
-            worst_rt = max(worst_rt, err / bound)
-            if err > bound:
-                raise AssertionError(f"round trip at {shape}: {err} > "
-                                     f"{bound}")
-        log(f"[quant] bit-exact: {shape} {dtype}")
-    return {"max_abs_err": worst, "round_trip_err_over_bound": worst_rt}
+        for misaligned in (False, True):
+            x = quant_input(shape, dtype, gen, misaligned)
+            qr, sr, mr = quantize_blocked_ref(x)
+            xp = dequantize_blocked_ref(qr, sr, mr)
+            want = packing(qr, sr)
+            nq = oq.quantize_blocked.launches
+            nd = oq.dequantize_blocked.launches
+            q, s, meta = oq.quantize_blocked(x)
+            xd = oq.dequantize_blocked(q, s, meta, out=quant_out(
+                shape, dtype, misaligned))
+            buf = packed_buffer(x.numel()).fill_(QUANT_SENTINEL)
+            qh, sh, mh = oq.quantize_blocked(x, out=buf)
+            xh = oq.dequantize_blocked(qh, sh, mh, out=quant_out(
+                shape, dtype, misaligned))
+            xc = tensile_executor.fetch_packed(qh, sh, mh, quant_out(
+                shape, dtype, misaligned), copy=True)
+            torch.cuda.synchronize()
+            launched = (oq.quantize_blocked.launches - nq,
+                        oq.dequantize_blocked.launches - nd)
+            worst = max(worst, max_abs_err(q, qr), max_abs_err(s, sr),
+                        max_abs_err(xd, xp), max_abs_err(xh, xp),
+                        max_abs_err(xc, xp))
+            stray += int(((buf == QUANT_SENTINEL)
+                          & (want != QUANT_SENTINEL)).sum())
+            same = {"q": torch.equal(q, qr), "s": torch.equal(s, sr),
+                    "meta": meta == mr == mh,
+                    "card_to_card": torch.equal(xd, xp),
+                    "card_to_pinned": torch.equal(buf, want)
+                    and qh.data_ptr() == buf.data_ptr(),
+                    "pinned_to_card": torch.equal(xh, xp),
+                    "copy_to_card": torch.equal(xc, xp),
+                    "one_launch_per_call": launched == (2, 3)
+                    or x.numel() == 0}
+            if not all(same.values()):
+                raise AssertionError(f"quantize kernels differ at {shape} "
+                                     f"{dtype} misaligned={misaligned}: "
+                                     f"{same}, max_abs_err {worst}")
+            if dtype == torch.float32:
+                bound = (float(x.abs().max()) / 127.0 + 1e-7) * 1.01
+                err = max_abs_err(xh, x)
+                worst_rt = max(worst_rt, err / bound)
+                if err > bound:
+                    raise AssertionError(f"round trip at {shape}: {err} > "
+                                         f"{bound}")
+            log(f"[quant] bit-exact on every route: {shape} {dtype}"
+                f"{' misaligned' if misaligned else ''}")
+    return {"max_abs_err": worst, "round_trip_err_over_bound": worst_rt,
+            "stray_sentinel_bytes": stray}
 
 
 def quant_calls(shape, dtype) -> tuple:
     """A seeded input of one shape, its quantized rows, and (name, wrapper
-    call, plain call) of both quant kernels on them."""
+    call, plain call) of both quant kernels on them, card to card."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
     q, s, meta = oq.quantize_blocked(x)
@@ -1372,12 +1460,60 @@ def quant_calls(shape, dtype) -> tuple:
                    lambda: dequantize_blocked_ref(q, s, meta)))
 
 
+def swap_calls(x: torch.Tensor) -> dict:
+    """A compressed swap of ``x`` each way, as the executor made it before
+    (``old``: the wrappers' card outputs staged through two pinned buffers
+    and two copies; two copies back, then the dequantize) and makes it now
+    (``new``: one quantize launch into a packed pinned buffer; back by the
+    executor's size rule, ``fetch_packed``), and the swap-in by each route
+    of that rule: one dequantize launch reading the pinned buffer
+    (``zero_copy``), or one copy of the buffer to the card and a
+    card-to-card dequantize (``copy``)."""
+    n = x.numel()
+    q, s, meta = oq.quantize_blocked(x)
+    hq, hs = q.cpu().pin_memory(), s.cpu().pin_memory()
+    buf = packed_buffer(n)
+    qh, sh, _ = oq.quantize_blocked(x, out=buf)
+    dst = torch.empty_like(x)
+
+    def old_out():
+        for t in oq.quantize_blocked(x)[:2]:
+            h = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                                    device="cpu", pin_memory=True)
+            h.copy_(t, non_blocking=True)
+
+    def new_out():
+        oq.quantize_blocked(x, out=packed_buffer(n))
+
+    def old_in():
+        oq.dequantize_blocked(hq.to("cuda", non_blocking=True),
+                              hs.to("cuda", non_blocking=True), meta,
+                              out=dst)
+
+    def fetch(copy):
+        return lambda: tensile_executor.fetch_packed(qh, sh, meta, dst, copy)
+
+    return {"out": {"old": old_out, "new": new_out},
+            "in": {"old": old_in, "new": fetch(None),
+                   "zero_copy": fetch(False), "copy": fetch(True)}}
+
+
 def quant_device_ms(shape, dtype: str) -> dict:
     """Device ms per call of both quant wrappers at one shape, from
     profiler traces (``device_ms``) with deterministic algorithms off, so
-    a call is its one kernel (no NaN fill of its output)."""
-    _, _, calls = quant_calls(tuple(shape), getattr(torch, dtype))
-    return {name: device_ms(fn) for name, fn, _ in calls}
+    a call is its one kernel (no NaN fill of its output): card to card,
+    and a compressed swap each way as the executor makes it: one kernel
+    and no copy per call, except a swap-in above the zero-copy size, which
+    copies the packed buffer first (``device_ms`` raises on any other
+    count)."""
+    x, _, calls = quant_calls(tuple(shape), getattr(torch, dtype))
+    out = {name: device_ms(fn) for name, fn, _ in calls}
+    swap = swap_calls(x)
+    out["swap_out"] = device_ms(swap["out"]["new"])
+    copied = (oq.packed_bytes(x.numel())
+              > tensile_executor.ZERO_COPY_MAX_BYTES)
+    out["swap_in"] = device_ms(swap["in"]["new"], per_call=1 + copied)
+    return out
 
 
 def in_fresh_process(phase: str, *args):
@@ -1397,14 +1533,18 @@ def in_fresh_process(phase: str, *args):
     return json.loads(result)
 
 
-def time_quant(shape, dtype) -> dict:
-    """Times of both wrappers (CUDA events over back-to-back calls) and of
-    their plain versions at one shape, with the byte bound at 3.35 TB/s:
-    quantize reads n * itemsize and writes n + 4 R bytes, dequantize the
-    reverse."""
+def time_quant(shape, dtype, link: dict) -> dict:
+    """Times at one shape (CUDA events over back-to-back calls): both
+    wrappers card to card and their plain versions, with the byte bound at
+    3.35 TB/s (quantize reads n * itemsize and writes n + 4 R bytes,
+    dequantize the reverse); and a compressed swap each way by the old and
+    the new route (``swap_calls``), timed in turns, with the link bound:
+    the wire bytes n + 4 R over the measured pinned rate of the
+    direction."""
     x, q, calls = quant_calls(shape, dtype)
     n, rows = x.numel(), q.shape[0]
     moved = n * x.element_size() + n + 4 * rows
+    wire = n + 4 * rows
     res = {}
     for name, fn, plain in calls:
         res[name] = {"ms": events_ms(fn, 10, inner=10),
@@ -1412,10 +1552,84 @@ def time_quant(shape, dtype) -> dict:
                      "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
                      "bytes": moved, "shape": list(shape),
                      "dtype": str(dtype).replace("torch.", "")}
+    inner = 10 if n < (1 << 22) else 2
+    swap = swap_calls(x)
+    for way, rate, name in (("out", "d2h_bytes_per_s", "quantize_blocked"),
+                            ("in", "h2d_bytes_per_s", "dequantize_blocked")):
+        fns = swap[way]
+        times = events_turns(list(fns.values()), 10, inner=inner)
+        res[name]["swap_ms"] = dict(zip(fns, times))
+        res[name]["link_bound_ms"] = wire / link[rate] * 1e3
+        res[name]["wire_bytes"] = wire
     res["quantize_source_bytes_per_s"] = (
         n * x.element_size() / (res["quantize_blocked"]["ms"] * 1e-3))
     log("[time] quant " + json.dumps(res))
     return res
+
+
+def quant_swap_in_ladder() -> dict:
+    """A compressed swap-in by each route (``swap_calls``: ``zero_copy``,
+    ``copy``) at each fp32 length of QUANT_LADDER, in turns, beside the
+    executor's rule (a zero-copy read up to ZERO_COPY_MAX_BYTES of packed
+    buffer)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ladder = {}
+    for n in QUANT_LADDER:
+        calls = swap_calls(torch.randn(n, generator=gen, device="cuda"))["in"]
+        t_zero, t_copy = events_turns([calls["zero_copy"], calls["copy"]],
+                                      10, inner=10 if n < (1 << 20) else 3)
+        ladder[oq.packed_bytes(n)] = {"zero_copy_ms": t_zero,
+                                      "copy_ms": t_copy}
+    out = {"zero_copy_max_bytes": tensile_executor.ZERO_COPY_MAX_BYTES,
+           "ladder": ladder}
+    log("[quant] swap-in routes by packed bytes: " + json.dumps(out))
+    return out
+
+
+def quant_cta_sweep(link: dict) -> dict:
+    """The host routes' CTA cap: a compressed swap of 64 MiB fp32 each way
+    (card to packed pinned buffer, buffer to card) at each CTA count of
+    QUANT_CTA_SWEEP, timed in turns with CUDA events, as a share of the
+    measured pinned link rate of its direction.  Each direction's cap is
+    the smallest count that reaches 90 % (``kQuantHostCtas`` and
+    ``kDequantHostCtas`` in the source)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(QUANT_BIG, generator=gen, device="cuda")
+    n = x.numel()
+    wire = oq.packed_bytes(n)
+    qh, sh, _ = oq.quantize_blocked(x, out=packed_buffer(n))
+    dst = torch.empty_like(x)
+    # the C entries with a grid cap, as the wrappers launch them otherwise
+    lib = oq._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(entry, *args):
+        err = entry(*args)
+        if err:
+            raise AssertionError(lib.offload_quant_error_string(err))
+
+    fns = []
+    for c in QUANT_CTA_SWEEP:
+        fns.append(lambda c=c: launch(
+            lib.offload_quantize, x.data_ptr(), 0, n, qh.data_ptr(),
+            sh.data_ptr(), qh.shape[0], 1, c, stream))
+        fns.append(lambda c=c: launch(
+            lib.offload_dequantize, qh.data_ptr(), sh.data_ptr(), n,
+            dst.data_ptr(), 0, 1, c, stream))
+    times = events_turns(fns, 5, inner=3)
+    sweep = {}
+    for i, c in enumerate(QUANT_CTA_SWEEP):
+        t_out, t_in = times[2 * i], times[2 * i + 1]
+        sweep[c] = {"swap_out_ms": t_out, "swap_in_ms": t_in,
+                    "out_link_share": wire / (t_out * 1e-3)
+                    / link["d2h_bytes_per_s"],
+                    "in_link_share": wire / (t_in * 1e-3)
+                    / link["h2d_bytes_per_s"]}
+    out = {"wire_bytes": wire, "sweep": sweep,
+           "host_ctas": {"quantize": lib.offload_quant_host_ctas(0),
+                         "dequantize": lib.offload_quant_host_ctas(1)}}
+    log("[quant] CTA sweep at 64 MiB fp32: " + json.dumps(out))
+    return out
 
 
 def tensile_mlp() -> dict:
@@ -1849,20 +2063,28 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
             rec["uncompressed_events_bit_identical"] = True
         return rec
 
-    shapes = collections.Counter()
+    shapes, swaps = collections.Counter(), collections.Counter()
     oq.quantize_blocked.launches = 0          # the main path: counts from 0
     oq.dequantize_blocked.launches = 0
     tensile_executor.quantize_blocked = _spy_quant(oq.quantize_blocked,
                                                    shapes)
     try:
-        comp_recs, state, host_inputs = _scheduled(
-            gm, seq, plan_c, profile, cfg, batch, n_state,
-            "tensile+compressed-offload", check_comp, base, exact=True)
+        with counting_swaps(swaps):
+            comp_recs, state, host_inputs = _scheduled(
+                gm, seq, plan_c, profile, cfg, batch, n_state,
+                "tensile+compressed-offload", check_comp, base, exact=True)
     finally:
         tensile_executor.quantize_blocked = oq.quantize_blocked
     launches = {"quantize_blocked": oq.quantize_blocked.launches,
                 "dequantize_blocked": oq.dequantize_blocked.launches}
-    log(f"[tensile] main-path launches {launches}; quantized shapes "
+    # one launch per compressed swap, and nothing else launches them
+    per_swap = {"quantize_blocked": launches["quantize_blocked"]
+                / max(swaps["out_compressed"], 1),
+                "dequantize_blocked": launches["dequantize_blocked"]
+                / max(swaps["in_compressed"], 1)}
+    log(f"[tensile] main-path launches {launches}; executor host copies "
+        f"and fetches {dict(swaps)}; launches per compressed swap "
+        f"{per_swap}; quantized shapes "
         f"{ {str(k): v for k, v in shapes.items()} }")
 
     # ---- one more compressed iteration under the profiler -------------
@@ -1871,7 +2093,18 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
                     engine=MemoryEngine(profile))
     box = [state]
     del state
-    prof = profile_window(lambda: box.append(ex.run_donated(box.pop())))
+    prof_swaps = collections.Counter()
+    with counting_swaps(prof_swaps):
+        prof = profile_window(lambda: box.append(ex.run_donated(box.pop())),
+                              names=PROFILED_SWAP_NAMES)
+    prof["swaps"] = dict(prof_swaps)
+    # host-to-card copies the graph makes itself (host constants moved to
+    # the card), beside the swaps' in the profiled step's count
+    prof["graph_host_to_card_copies"] = sum(
+        1 for n in gm.graph.nodes
+        if n.target is torch.ops.aten._to_copy.default
+        and n.args[0].meta["val"].device.type == "cpu"
+        and n.meta["val"].device.type == "cuda")
     del ex, box
     torch.cuda.empty_cache()
 
@@ -1902,6 +2135,7 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
         "loss_op": loss_op, "forward_compressed_reads": len(fwd_reads),
         "unscheduled": unsched, "tensile": plain_recs,
         "compressed": comp_recs, "launches": launches,
+        "swaps": dict(swaps), "launches_per_swap": per_swap,
         "quantized_shapes": {str(k): v for k, v in shapes.items()},
         "profile": prof}
     log("[tensile_train] " + json.dumps(
@@ -1928,13 +2162,60 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+        if per_swap[name] != 1:
+            raise AssertionError(f"{name}: {n} launches for {dict(swaps)} "
+                                 "compressed swaps, not one each")
+    # the profiled step copies to the host only plain swaps' tensors (the
+    # graph itself copies nothing there), and to the card only plain
+    # swaps', packed buffers above the zero-copy size and the graph's own
+    # host constants: a trace that lost events counts fewer, a copy of
+    # int8 rows or scales more
+    for copy, allowed in (
+            ("Memcpy DtoH", prof_swaps["out_plain"]),
+            ("Memcpy HtoD", prof_swaps["in_plain"]
+             + prof_swaps["in_compressed_copied"]
+             + prof["graph_host_to_card_copies"])):
+        if prof["named"][copy][0] > allowed:
+            raise AssertionError(f"the profiled compressed step made "
+                                 f"{prof['named'][copy][0]} {copy} copies "
+                                 f"for {dict(prof_swaps)} swaps")
     return out
 
 
+@contextlib.contextmanager
+def counting_swaps(counts: collections.Counter):
+    """While active, count the executor's host copies (``out_``) and host
+    fetches (``in_``), compressed and plain, into ``counts``."""
+    cls = tensile_executor.FxExecutor
+    to_host, fetch = cls._to_host, cls._host_fetch
+
+    def counted_to_host(self, val, compressed):
+        counts["out_compressed" if compressed else "out_plain"] += 1
+        return to_host(self, val, compressed)
+
+    def counted_fetch(self, st):
+        rec = self.host[st]
+        if rec.compressed:
+            counts["in_compressed"] += 1
+            q, s, _ = rec.data
+            if (q.numel() + 4 * s.numel()
+                    > tensile_executor.ZERO_COPY_MAX_BYTES):
+                counts["in_compressed_copied"] += 1
+        else:
+            counts["in_plain"] += 1
+        return fetch(self, st)
+
+    cls._to_host, cls._host_fetch = counted_to_host, counted_fetch
+    try:
+        yield counts
+    finally:
+        cls._to_host, cls._host_fetch = to_host, fetch
+
+
 def _spy_quant(fn, shapes):
-    def call(x):
+    def call(x, *args, **kw):
         shapes[(tuple(x.shape), str(x.dtype).replace("torch.", ""))] += 1
-        return fn(x)
+        return fn(x, *args, **kw)
     return call
 
 
@@ -2048,7 +2329,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     quant = timed("check_quant", check_quant)
-    quant_big = timed("time_quant", time_quant, QUANT_BIG, torch.float32)
+    quant_big = timed("time_quant", time_quant, QUANT_BIG, torch.float32,
+                      link)
+    sweep = timed("quant_cta_sweep", quant_cta_sweep, link)
+    ladder = timed("quant_swap_in_ladder", quant_swap_in_ladder)
+    quant_big_dev = timed("quant_device_ms_64mib", in_fresh_process,
+                          "quant_device_ms", QUANT_BIG, "float32")
+    log("[time] quant device ms at 64 MiB fp32 " + json.dumps(quant_big_dev))
     timed("tensile_mlp", tensile_mlp)
     tt = timed("tensile_train", tensile_train, link,
                quant_big["quantize_source_bytes_per_s"])
@@ -2060,7 +2347,7 @@ def main() -> int:
     # the kernels' times at the main path's most quantized shape
     (shape, dtype), _ = max(tt["quantized_shapes_raw"].items(),
                             key=lambda kv: (kv[1], math.prod(kv[0][0])))
-    qt = timed("time_quant", time_quant, shape, getattr(torch, dtype))
+    qt = timed("time_quant", time_quant, shape, getattr(torch, dtype), link)
     qt_dev = timed("quant_device_ms", in_fresh_process, "quant_device_ms",
                    shape, dtype)
     log("[time] quant device ms " + json.dumps(qt_dev))
@@ -2111,8 +2398,20 @@ def main() -> int:
             "bound_ms": qt[name]["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "device_ms": qt_dev[name],
             "shape": qt[name]["shape"], "dtype": qt[name]["dtype"],
+            "swap_ms": qt[name]["swap_ms"],
+            "swap_device_ms": qt_dev["swap_out" if name.startswith("q")
+                                     else "swap_in"],
+            "link_bound_ms": qt[name]["link_bound_ms"],
+            "launches_per_swap": tt["launches_per_swap"][name],
+            "stray_sentinel_bytes": quant["stray_sentinel_bytes"]
+            + quant_main["stray_sentinel_bytes"],
             "ms_64mib_fp32": quant_big[name]["ms"],
-            "bound_ms_64mib_fp32": quant_big[name]["bound_ms"]})
+            "device_ms_64mib_fp32": quant_big_dev[name],
+            "bound_ms_64mib_fp32": quant_big[name]["bound_ms"],
+            "swap_ms_64mib_fp32": quant_big[name]["swap_ms"],
+            "link_bound_ms_64mib_fp32": quant_big[name]["link_bound_ms"],
+            "host_ctas": sweep["host_ctas"],
+            "zero_copy_max_bytes": ladder["zero_copy_max_bytes"]})
     b, nc, q, h, p, n, _ = SSD_PREFILL
     kernels.append({
         "name": "ssd_intra_chunk_fwd", "route": "cuda",

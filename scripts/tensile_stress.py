@@ -74,7 +74,7 @@ def main() -> int:
     if a.after_ssm:
         ssm_phases()
         log("Mamba-2 phases done")
-    quant_bw = cs.time_quant(cs.QUANT_BIG, torch.float32)[
+    quant_bw = cs.time_quant(cs.QUANT_BIG, torch.float32, link)[
         "quantize_source_bytes_per_s"]
 
     cap = cs.tensile_capture(link, quant_bw)

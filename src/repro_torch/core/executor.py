@@ -13,11 +13,18 @@ plan agree by construction (peak bytes and decision trace in sync mode).
 The data path is real: a swapped-out storage is copied to pinned host
 memory and dropped from the device store; a swap-in copies it back; a
 recompute replays the producer node.  Compressed events go through the
-quantize/dequantize kernels (``kernels/offload_quant``): quantize, then
-device-to-host of the int8 rows and scales; host-to-device, then
-dequantize.  Both stores are keyed by **storage id**: an updated parameter
-aliases the old parameter's storage (paper §IV-B situation 2).  A view is
-rebuilt from its base at each use (the TAS names only storage owners).
+quantize/dequantize kernels (``kernels/offload_quant``): a swap-out is one
+quantize launch that writes the int8 rows and scales into one packed pinned
+host buffer, a swap-in one dequantize launch that reads them from it into
+the device value (no staging on the card, no separate copies; a packed
+buffer above ``ZERO_COPY_MAX_BYTES`` is first copied to the card whole,
+since the copy engine moves large buffers faster than a kernel reads
+them).  A host buffer that leaves the store is kept alive until every
+launch queued before it left has completed (``_hold``): PyTorch's caching
+host allocator sees copies, not kernels.  Both stores are keyed by
+**storage id**: an updated parameter aliases the old parameter's storage
+(paper §IV-B situation 2).  A view is rebuilt from its base at each use
+(the TAS names only storage owners).
 
 Two swap modes:
   * sync  -- each swap runs inline at its trigger, on the compute stream
@@ -52,7 +59,8 @@ import torch
 import torch.utils._pytree as pytree
 from torch.fx.node import map_arg
 
-from ..kernels.offload_quant import dequantize_blocked, quantize_blocked
+from ..kernels.offload_quant import (dequantize_blocked, packed_bytes,
+                                     packed_views, quantize_blocked)
 from .access import AccessSequence
 from .engine import (INPUT_AWAIT_PREFETCH, INPUT_PASSIVE_SWAP_IN,
                      INPUT_RESIDENT, DeviceLedger, DmaChannel, MemoryEngine,
@@ -78,10 +86,55 @@ class ExecutionStats:
     residency_timeline: Optional[List[tuple]] = None
 
 
+# A compressed swap-in whose packed buffer holds at most this many bytes
+# is read over the link by the dequantize kernel itself; a larger one is
+# first copied to the card by the copy engine, whose rate per byte is
+# higher and steadier (on the H100 the routes cross between 1.06 and
+# 2.1 MB of packed buffer: PERF.md, section 6).
+ZERO_COPY_MAX_BYTES = 1 << 20
+
+
+def empty_unfilled(size, stride, dtype: torch.dtype,
+                   device: Any = "cpu", pin: bool = False) -> torch.Tensor:
+    """Memory (pinned with ``pin``) for a swap that writes every byte of it
+    before anything reads it (a ``copy_``, or the quantize kernel filling
+    a packed buffer).  Under deterministic algorithms ``torch.empty``
+    fills new memory with NaN: on the host at memset speed (milliseconds
+    for tens of MB), on a card as one more kernel.  Nothing would read
+    that fill, so it is switched off for this one allocation."""
+    det = torch.utils.deterministic
+    fill = det.fill_uninitialized_memory
+    det.fill_uninitialized_memory = False
+    try:
+        return torch.empty_strided(size, stride, dtype=dtype, device=device,
+                                   pin_memory=pin)
+    finally:
+        det.fill_uninitialized_memory = fill
+
+
+def fetch_packed(q: torch.Tensor, s: torch.Tensor, meta,
+                 out: torch.Tensor, copy: Optional[bool] = None
+                 ) -> torch.Tensor:
+    """Dequantize a compressed host copy (``q``, ``s``: views of one
+    pinned packed buffer) into ``out`` on a card, on the current stream:
+    one kernel reading the buffer over the link, or, for a buffer of more
+    than ZERO_COPY_MAX_BYTES, one copy of it to the card and then the
+    kernel.  ``copy`` forces a route (to measure the rule)."""
+    nbytes = q.numel() + 4 * s.numel()
+    if copy is None:
+        copy = nbytes > ZERO_COPY_MAX_BYTES
+    if copy:
+        card = empty_unfilled((nbytes,), (1,), torch.int8, out.device)
+        card.copy_(q.as_strided((nbytes,), (1,)), non_blocking=True)
+        q, s = packed_views(card, q.shape[0])
+    return dequantize_blocked(q, s, meta, out=out)
+
+
 @dataclasses.dataclass
 class HostCopy:
     """A storage parked on the host: the tensor itself (same shape and
-    strides), or its int8 rows, scales and quantize meta."""
+    strides), or its int8 rows, scales and quantize meta (the rows and
+    scales as views of one packed buffer)."""
     data: Any
     size: Tuple[int, ...]
     stride: Tuple[int, ...]
@@ -224,6 +277,9 @@ class FxExecutor:
         # compressed, the device tensor being copied)
         self._pending_out: Dict[str, Tuple[Transfer, bool,
                                            torch.Tensor]] = {}
+        # host copies gone from the store that a queued launch may still
+        # read or write: (events marking the streams' queues, the copy)
+        self._held: List[Tuple[List[torch.cuda.Event], Any]] = []
         # decisions consult THIS iteration's value store
         self.resident = ResidencyView(self.device)
         self.producer: Dict[str, int] = {}
@@ -323,6 +379,7 @@ class FxExecutor:
 
     # ------------------------------------------------------------------
     def _host_put(self, st: str, copy: HostCopy) -> None:
+        self._hold(self.host.get(st))
         self.host[st] = copy
         self.ctx.host.add(st)
         if copy.compressed:
@@ -330,25 +387,38 @@ class FxExecutor:
         else:
             self.ctx.host_compressed.discard(st)
 
+    def _hold(self, rec: Optional[HostCopy]) -> None:
+        """Keep ``rec``, just dropped from the host store, alive until what
+        the compute and copy streams have queued so far has run: a kernel
+        may still read or write its pinned memory, and the caching host
+        allocator would hand that memory out again at once."""
+        if rec is None or not self._pinned():
+            return
+        streams = [self._compute]
+        if self.async_exec is not None:
+            streams.append(self.async_exec.stream)
+        self._held.append(([s.record_event() for s in streams], rec))
+
+    def _release_held(self) -> None:
+        self._held = [h for h in self._held
+                      if not all(e.query() for e in h[0])]
+
     def _pinned(self) -> bool:
         return self.dev is not None and self.dev.type == "cuda"
 
     def _to_host(self, val: torch.Tensor, compressed: bool) -> HostCopy:
         """Copy a device tensor to new host memory, on the current stream
-        (pinned and without blocking on a CUDA card)."""
+        (pinned and without blocking on a CUDA card).  A compressed copy is
+        one quantize launch into a packed buffer."""
         pin = self._pinned()
-
-        def host_of(t: torch.Tensor) -> torch.Tensor:
-            h = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
-                                    device="cpu", pin_memory=pin)
-            h.copy_(t, non_blocking=pin)
-            return h
-
         if compressed:
-            q, s, meta = quantize_blocked(val)
-            data: Any = (host_of(q), host_of(s), meta)
+            buf = empty_unfilled((packed_bytes(val.numel()),), (1,),
+                                 torch.int8, pin=pin)
+            data: Any = quantize_blocked(val, out=buf)
         else:
-            data = host_of(val)
+            data = empty_unfilled(val.size(), val.stride(), val.dtype,
+                                  pin=pin)
+            data.copy_(val, non_blocking=pin)
         return HostCopy(data, tuple(val.size()), tuple(val.stride()),
                         val.dtype, compressed)
 
@@ -364,8 +434,8 @@ class FxExecutor:
 
     def _host_fetch(self, st: str) -> torch.Tensor:
         """Materialize a device value from the host store on the current
-        stream, into memory allocated on the compute stream (dequantizing a
-        compressed copy through the kernel)."""
+        stream, into memory allocated on the compute stream (a compressed
+        copy through the dequantize kernel, ``fetch_packed`` on a card)."""
         rec = self.host[st]
         pending = self._pending_out.get(st)
         if pending is not None and pending[0].event is not None:
@@ -393,12 +463,14 @@ class FxExecutor:
                                       device=self.dev)
         if not rec.compressed:
             return dst.copy_(rec.data, non_blocking=self._pinned())
-        qh, sh, meta = rec.data
-        q = qh.to(self.dev, non_blocking=self._pinned())
-        s = sh.to(self.dev, non_blocking=self._pinned())
-        if dst.is_contiguous():
-            return dequantize_blocked(q, s, meta, out=dst)
-        return dst.copy_(dequantize_blocked(q, s, meta))
+        q, s, meta = rec.data
+        out = dst if dst.is_contiguous() else torch.empty(
+            rec.size, dtype=rec.dtype, device=self.dev)
+        if self._pinned():
+            fetch_packed(q, s, meta, out)
+        else:
+            dequantize_blocked(q, s, meta, out=out)
+        return dst if out is dst else dst.copy_(out)
 
     def _swap_out(self, tid: str, compressed: bool = False) -> None:
         st = self._st(tid)
@@ -438,7 +510,7 @@ class FxExecutor:
         the new value stays."""
         if val is not None and st in self.device \
                 and self.device[st] is not val:
-            self.host.pop(st, None)
+            self._hold(self.host.pop(st, None))
             self.ctx.host.discard(st)
             self.ctx.host_compressed.discard(st)
             return
@@ -614,6 +686,8 @@ class FxExecutor:
             # retire any swap-out whose copy landed while we computed
             if self._pending_out:
                 self._poll_swap_outs()
+            if self._held:
+                self._release_held()
             t0 = _time.perf_counter()
             for tid in op.inputs:
                 self._ensure_input(tid)
@@ -686,6 +760,7 @@ class FxExecutor:
             self.telemetry.end_iteration(self.ctx.job_id)
         if self._compute is not None:
             self._compute.synchronize()
+        self._held.clear()
         self.stats.wall_time_s = _time.perf_counter() - t_start
         self.stats.peak_bytes = self.accountant.peak
         return outs

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 import repro_torch.core as tc
-from repro_torch.core.executor import HostCopy
-from repro_torch.kernels.ref import dequantize_blocked_ref, quantize_blocked_ref
+from repro_torch.core.executor import AsyncSwapExecutor, HostCopy
+from repro_torch.kernels.offload_quant import packed_bytes, quantize_blocked
+from repro_torch.kernels.ref import dequantize_blocked_ref
 
 
 def _need_card():
@@ -60,10 +61,12 @@ def test_prefetch_lands_after_its_allocation(compressed):
     ex = _fetcher()
     x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
     if compressed:
-        q, s, meta = quantize_blocked_ref(x)
-        ex.host["x"] = HostCopy((q.pin_memory(), s.pin_memory(), meta),
-                                tuple(x.shape), tuple(x.stride()), x.dtype,
-                                True)
+        # the executor's packed pinned buffer, filled on the host
+        buf = torch.empty(packed_bytes(x.numel()), dtype=torch.int8,
+                          pin_memory=True)
+        q, s, meta = quantize_blocked(x, out=buf)
+        ex.host["x"] = HostCopy((q, s, meta), tuple(x.shape),
+                                tuple(x.stride()), x.dtype, True)
         want = dequantize_blocked_ref(q, s, meta)
     else:
         ex.host["x"] = HostCopy(x.pin_memory(), tuple(x.shape),
@@ -81,6 +84,44 @@ def test_prefetch_lands_after_its_allocation(compressed):
             got = ex._host_fetch("x")
         torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_packed_buffer_outlives_the_swap_in_that_reads_it():
+    """A swap-in's dequantize reads its packed pinned buffer on the copy
+    stream behind a spin kernel, while ``_host_put`` replaces the entry
+    and the buffer's last reference goes.  PyTorch's caching host
+    allocator does not see the kernel's read and would hand the memory out
+    at once; the executor holds the buffer until the read has run, so a
+    new owner that writes its pinned memory at once changes nothing."""
+    _need_card()
+    ex = _fetcher()
+    ex.async_exec = AsyncSwapExecutor(ex.channel, ex.dev)
+    copy = ex.async_exec.stream
+    x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0))
+    nbytes = packed_bytes(x.numel())
+    q, s, meta = quantize_blocked(x, out=torch.empty(
+        nbytes, dtype=torch.int8, pin_memory=True))
+    want = dequantize_blocked_ref(q, s, meta)
+    ex.host["x"] = HostCopy((q, s, meta), tuple(x.shape), tuple(x.stride()),
+                            x.dtype, True)
+    del q, s
+    with torch.cuda.stream(copy):      # loads the kernels, warms up
+        ex._host_fetch("x")
+    torch.cuda.synchronize()
+    with torch.cuda.stream(copy):
+        torch.cuda._sleep(50_000_000)
+        got = ex._host_fetch("x")
+    ex._host_put("x", HostCopy(torch.zeros(1).pin_memory(), (1,), (1,),
+                               torch.float32, False))
+    assert len(ex._held) == 1
+    junk = [torch.full((nbytes,), 0x7F, dtype=torch.int8, pin_memory=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    ex._release_held()
+    assert not ex._held
+    del junk
 
 
 @pytest.mark.cuda

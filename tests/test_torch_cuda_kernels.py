@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.executor import fetch_packed
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import offload_quant as oq
@@ -263,29 +264,66 @@ def test_ssd_kernel_matches_plain_version(b, nc, q, h, p, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
 @pytest.mark.parametrize("shape", [(1,), (511,), (513,), (37, 129),
                                    (4, 1024, 5632)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-def test_quant_kernels_match_plain_versions(shape, dtype):
+def test_quant_kernels_match_plain_versions(shape, dtype, misaligned):
+    """Every route of a swap: card to card, card to a packed pinned buffer
+    (pre-filled with a sentinel, then holding the plain packing byte for
+    byte), and that buffer to the card, read by the kernel or first copied
+    whole (the executor's ``fetch_packed``); each call one launch.  With
+    ``misaligned`` the input and the outputs are views one element into
+    their storage (the kernels' scalar path)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                         * 3).to(dtype).cuda()
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.standard_normal(n + 1, dtype=np.float32)
+                            * 3).to(dtype).cuda()
+    off = int(misaligned)
+    x = flat[off:off + n].view(shape)
+
+    def out():
+        return torch.empty(n + 1, dtype=dtype,
+                           device="cuda")[off:off + n].view(shape)
+
     nq, nd = oq.quantize_blocked.launches, oq.dequantize_blocked.launches
     q, s, meta = oq.quantize_blocked(x)
     qr, sr, mr = quantize_blocked_ref(x)
-    xk = oq.dequantize_blocked(q, s, meta)
+    want = dequantize_blocked_ref(qr, sr, mr)
+    dst = out()
+    xk = oq.dequantize_blocked(q, s, meta, out=dst)
+    x_new = oq.dequantize_blocked(q, s, meta)
+    buf = torch.full((oq.packed_bytes(n),), 0x5A, dtype=torch.int8,
+                     pin_memory=True)
+    qh, sh, mh = oq.quantize_blocked(x, out=buf)
+    xh = oq.dequantize_blocked(qh, sh, mh, out=out())
+    xc = fetch_packed(qh, sh, mh, out(), copy=True)
     torch.cuda.synchronize()
-    assert torch.equal(q, qr) and torch.equal(s, sr) and meta == mr
-    assert torch.equal(xk, dequantize_blocked_ref(q, s, meta))
+    assert torch.equal(q, qr) and torch.equal(s, sr) and meta == mr == mh
+    assert xk is dst and torch.equal(xk, want) and torch.equal(xh, want)
+    assert torch.equal(x_new, want) and torch.equal(xc, want)
+    assert qh.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf, torch.cat([qr.reshape(-1).cpu(), sr.reshape(
+        -1).cpu().view(torch.int8)]))
     assert (oq.quantize_blocked.launches,
-            oq.dequantize_blocked.launches) == (nq + 1, nd + 1)
-    out = torch.empty_like(x)
-    assert oq.dequantize_blocked(q, s, meta, out=out) is out
-    torch.cuda.synchronize()
-    assert torch.equal(out, xk)
+            oq.dequantize_blocked.launches) == (nq + 2, nd + 4)
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_refuse_unpinned_host_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x = torch.randn(1000, device="cuda")
+    q, s, meta = oq.quantize_blocked(x)
+    with pytest.raises(ValueError, match="pinned"):
+        oq.quantize_blocked(x, out=torch.empty(oq.packed_bytes(1000),
+                                               dtype=torch.int8))
+    with pytest.raises(ValueError, match="pinned"):
+        oq.dequantize_blocked(q.cpu(), s.cpu(), meta,
+                              out=torch.empty_like(x))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,9 @@ reference's outputs rtol 1e-5, atol 1e-6 on the MLP, the reference's own
 against the reference's step at the port's train-step tolerances
 (``tests/test_torch_forward.py``: loss rtol 1e-4, parameters rtol 2e-2,
 atol 2e-4); a compressed plan moves each parameter at most 2 x lr from
-the exact run's (Adam's step is at most lr in size).
+the exact run's (Adam's step is at most lr in size; on the LM step, plus
+the fp32 rounding of the parameter), and its packed host buffers hold the
+plain packing bit for bit.
 """
 import dataclasses
 
@@ -31,11 +33,16 @@ from repro.launch import steps as jax_steps
 from repro.models.registry import get_model as jax_get_model
 from repro.optim.adam import adamw_init as jax_adamw_init
 import repro_torch.core as tc
+import repro_torch.core.executor as executor
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.convert import params_from_jax
 from repro_torch.core.engine import DeviceLedger, DmaChannel
-from repro_torch.launch.steps import build_functional_train_step
+from repro_torch.kernels.offload_quant import packed_bytes
+from repro_torch.kernels.ref import (dequantize_blocked_ref,
+                                     quantize_blocked_ref)
+from repro_torch.launch.steps import (TrainStepConfig,
+                                      build_functional_train_step)
 from repro_torch.models.registry import get_model
 from repro_torch.optim import adam
 from repro_torch.service.workloads import make_mlp
@@ -351,6 +358,111 @@ def test_compressed_swap_of_an_integer_tensor_is_exact(lm):
     out = ex.run(*args)
     assert ex.stats.swap_out_count == 1 and ex.stats.compressed_swaps == 0
     assert _equal(out, tc.FxExecutor(gm, seq, None).run(*args))
+
+
+def test_compressed_swaps_fill_one_packed_buffer_each(lm, monkeypatch):
+    """The reduced TinyLlama step under the compressed-first plan
+    (compressed, swap, recompute): each compressed swap-out is one quantize
+    call into one packed host buffer whose bytes are the plain packing of
+    the value swapped out; each compressed host copy is its rows and scales
+    as views of that buffer; the step's loss is the exact step's and its
+    parameters within 2 lr of it."""
+    seq, gm, args = lm["seq"], lm["gm"], lm["args"]
+    prof = tc.MachineProfile()
+    unsched = tc.simulate([seq], None, prof, iterations=1).peak_bytes
+    cfg = tc.SchedulerConfig(memory_budget_bytes=int(0.6 * unsched),
+                             patience_iters=10 ** 4)
+    ms = tc.MemoryScheduler(prof, cfg, pipeline=tc.Pipeline(
+        [tc.CompressedOffloadPass(), tc.SwapPass(), tc.RecomputePass()],
+        profile=prof, config=cfg))
+    ms.register_job(seq)
+    plan = ms.schedule().plans[seq.job_id]
+    assert any(e.compressed for e in plan.events)
+    calls = []
+    quantize = executor.quantize_blocked
+
+    def spy(x, out=None, **kw):
+        calls.append((x.clone(), out))
+        return quantize(x, out=out, **kw)
+
+    monkeypatch.setattr(executor, "quantize_blocked", spy)
+    base = tc.FxExecutor(gm, seq, None).run(*args)
+    n = len(args[0])
+    lr = TrainStepConfig().learning_rate
+    for async_swap in (False, True):
+        calls.clear()
+        ex = tc.FxExecutor(gm, seq, plan, async_swap=async_swap)
+        out = ex.run(*args)
+        assert len(calls) >= ex.stats.compressed_swaps > 0
+        for x, buf in calls:
+            q, s, _ = quantize_blocked_ref(x)
+            assert buf.dim() == 1 and buf.numel() == packed_bytes(x.numel())
+            assert torch.equal(buf, torch.cat([q.reshape(-1),
+                                               s.reshape(-1).view(
+                                                   torch.int8)]))
+        parked = [r.data for r in ex.host.values() if r.compressed]
+        assert parked
+        for q, s, meta in parked:
+            st = q.untyped_storage()
+            assert st.data_ptr() == s.untyped_storage().data_ptr()
+            assert st.nbytes() == packed_bytes(q.shape[0] * q.shape[1]
+                                               - meta[2])
+        assert np.isclose(float(out[3 * n + 1]), float(base[3 * n + 1]),
+                          rtol=1e-4)
+        for a, b in zip(out[:n], base[:n]):
+            tol = 2 * lr + 2 * torch.finfo(b.dtype).eps * float(
+                b.abs().max())
+            assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("extra_rows,copied", [(None, False), (0, False),
+                                                (1, True)])
+def test_fetch_packed_copies_only_above_the_zero_copy_size(
+        extra_rows, copied, monkeypatch):
+    """The compressed swap-in's size rule: a packed buffer of at most
+    ``ZERO_COPY_MAX_BYTES`` is read where it lies, a larger one after one
+    copy (on the card: to the card); one dequantize either way, with the
+    same values.  Cases: one row, the most rows that fit, one more."""
+    fit = executor.ZERO_COPY_MAX_BYTES // packed_bytes(1)
+    rows = 1 if extra_rows is None else fit + extra_rows
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        rows * 512).astype(np.float32))
+    buf = torch.empty(packed_bytes(x.numel()), dtype=torch.int8)
+    q, s, meta = executor.quantize_blocked(x, out=buf)
+    read = []
+    dequantize = executor.dequantize_blocked
+
+    def spy(q, s, meta, out):
+        read.append(q.data_ptr())
+        return dequantize(q, s, meta, out=out)
+
+    monkeypatch.setattr(executor, "dequantize_blocked", spy)
+    out = torch.empty_like(x)
+    assert executor.fetch_packed(q, s, meta, out) is out
+    assert len(read) == 1 and (read[0] != buf.data_ptr()) == copied
+    assert torch.equal(out, dequantize_blocked_ref(q, s, meta))
+
+
+@pytest.mark.parametrize("fill", [False, True])
+def test_empty_unfilled_skips_the_fill_and_restores_the_setting(fill):
+    """``empty_unfilled`` allocates with the deterministic fill of new memory
+    off, and leaves the setting as it found it, also when it raises."""
+    det = torch.utils.deterministic
+    prev, prev_det = (det.fill_uninitialized_memory,
+                      torch.are_deterministic_algorithms_enabled())
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = fill
+    try:
+        h = executor.empty_unfilled((3, 4), (1, 3), torch.float32)
+        assert (h.shape, h.stride(), h.dtype) == ((3, 4), (1, 3),
+                                                  torch.float32)
+        assert det.fill_uninitialized_memory is fill
+        with pytest.raises(RuntimeError):
+            executor.empty_unfilled((-1,), (1,), torch.float32)
+        assert det.fill_uninitialized_memory is fill
+    finally:
+        det.fill_uninitialized_memory = prev
+        torch.use_deterministic_algorithms(prev_det)
 
 
 def test_run_takes_the_state_as_one_flat_list(mlp):

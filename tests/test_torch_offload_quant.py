@@ -14,6 +14,8 @@ reciprocal, which rounds differently in some rows (the reference's own
 test compares only the int8 rows, ``tests/test_kernels.py:85-94``);
 dequantized values rtol 1e-6, as the reference holds its numpy version;
 round trips within absmax/127 per element, the reference's property.
+The packed buffer (rows, then scales, in one int8 buffer) is held to the
+same tolerances, and must be written whole.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,7 @@ from repro_torch.kernels.ref import dequantize_blocked_ref
 given, settings, st = hypothesis_or_stub()
 
 SHAPES = [(1,), (511,), (512,), (513,), (37, 129), (3, 4, 100)]
+SENTINEL = 0x5A
 
 
 def _inputs(shape, seed=0, scale=3.0):
@@ -104,3 +107,86 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tq.dequantize_blocked(q.to(torch.int16), s, meta)
     with pytest.raises(ValueError):
         tq.dequantize_blocked(q, s, meta, out=torch.empty(5))
+
+
+def _packing(q, s):
+    return torch.cat([q.reshape(-1), s.reshape(-1).view(torch.int8)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_packed_buffer_matches_pallas_kernel(shape, dtype):
+    """``quantize_blocked(x, out=buf)``: the rows, then the scales, in one
+    buffer, returned as its views; dequantized from those views.  The
+    buffer holds the JAX package's numpy packing bit for bit.  Against the
+    Pallas kernel the scales agree within 2 ulps (XLA's reciprocal, see
+    the module docstring), and so do the int8 rows bit for bit in every
+    row whose scale agrees exactly; where XLA moved a scale by an ulp, an
+    element at a rounding tie may land one step away (here: one element
+    of (37, 129) bf16)."""
+    x = _inputs(shape, seed=2)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    qj, sj, mj = jq.quantize_blocked(jnp.asarray(x).astype(dtype))
+    rows = qj.shape[0]
+    buf = torch.empty(tq.packed_bytes(xt.numel()), dtype=torch.int8)
+    q, s, meta = tq.quantize_blocked(xt, out=buf)
+    assert q.data_ptr() == buf.data_ptr()
+    assert s.data_ptr() == buf.data_ptr() + rows * tq.BLOCK
+    qn, sn, _ = jref.quantize_blocked_ref(xt.float().numpy())
+    np.testing.assert_array_equal(buf.numpy(), np.concatenate(
+        [qn.reshape(-1), sn.reshape(-1).view(np.int8)]))
+    q_buf = buf[:rows * tq.BLOCK].view(rows, tq.BLOCK).numpy()
+    s_buf = buf[rows * tq.BLOCK:].view(torch.float32).view(rows, 1).numpy()
+    np.testing.assert_allclose(s_buf, np.asarray(sj), rtol=2.4e-7)
+    same = (s_buf == np.asarray(sj))[:, 0]
+    np.testing.assert_array_equal(q_buf[same], np.asarray(qj)[same])
+    assert np.abs(q_buf.astype(int) - np.asarray(qj)).max() <= 1
+    # the same rows and scales through the Pallas dequantize
+    xr_j = np.asarray(jq.dequantize_blocked(jnp.asarray(q_buf),
+                                            jnp.asarray(s_buf), mj))
+    out = torch.empty_like(xt)
+    assert tq.dequantize_blocked(q, s, meta, out=out) is out
+    np.testing.assert_allclose(out.float().numpy(), xr_j.astype(np.float32),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_quantize_writes_every_byte_of_the_packed_buffer(shape):
+    x = torch.from_numpy(_inputs(shape, seed=3))
+    buf = torch.full((tq.packed_bytes(x.numel()),), SENTINEL,
+                     dtype=torch.int8)
+    tq.quantize_blocked(x, out=buf)
+    want = _packing(*tq.quantize_blocked(x)[:2])
+    assert not bool(((buf == SENTINEL) & (want != SENTINEL)).any())
+    assert torch.equal(buf, want)
+
+
+@pytest.mark.parametrize("numel,nbytes", [(0, 0), (1, 516), (512, 516),
+                                          (513, 1032), (37 * 129, 10 * 516)])
+def test_packed_bytes(numel, nbytes):
+    assert tq.packed_bytes(numel) == nbytes
+
+
+@pytest.mark.parametrize("bad", ["size", "dtype", "shape", "alignment",
+                                 "device"])
+def test_quantize_refuses_a_wrong_packed_buffer(bad):
+    x = torch.from_numpy(_inputs((600,)))
+    n = tq.packed_bytes(600)
+    buf = {"size": lambda: torch.empty(n - 4, dtype=torch.int8),
+           "dtype": lambda: torch.empty(n, dtype=torch.uint8),
+           "shape": lambda: torch.empty((2, n // 2), dtype=torch.int8),
+           "alignment": lambda: torch.empty(n + 1, dtype=torch.int8)[1:],
+           "device": lambda: torch.empty(n, dtype=torch.int8,
+                                         device="meta")}[bad]()
+    with pytest.raises(ValueError):
+        tq.quantize_blocked(x, out=buf)
+
+
+def test_dequantize_refuses_an_out_off_host_and_card():
+    """An ``out`` on neither the host nor a card is refused.  (A host
+    operand of a card launch must be pinned: the C entry checks, so only
+    the card can show that refusal, ``test_torch_cuda_kernels.py``.)"""
+    q, s, meta = tq.quantize_blocked(torch.from_numpy(_inputs((600,))))
+    with pytest.raises(ValueError):
+        tq.dequantize_blocked(q, s, meta, out=torch.empty(600,
+                                                          device="meta"))
