@@ -57,7 +57,7 @@ random weights from seed 0):
    full-width train step (B 4, S 1024, no block remat) captured on fake
    tensors, its operator latencies measured by one unscheduled run, planned
    with the compressed pass first under the tightest budget that plan
-   reaches, and executed for 3 iterations with swaps to pinned host memory
+   reaches, and executed for 2 iterations with swaps to pinned host memory
    on a copy stream (``tensile_train``).  The same budget's uncompressed
    ``tensile`` plan must give results bit-identical to the unscheduled
    run, the compressed plan results within stated tolerances, the
@@ -66,6 +66,25 @@ random weights from seed 0):
    kernel launch, and the profiled compressed step may copy between host
    and card only for plain swaps, packed buffers above the zero-copy size
    and the graph's own host constants.
+5. The multi-job runtime (``multi_job``, in a fresh process): one
+   ``GlobalController`` on the card's profile (``tensile+autoscale``,
+   async swaps, priority arbitration in ``preempt`` mode) runs job A (the
+   train step above, 3 iterations), job B (the same model at B 2, 2
+   iterations, captured before A starts and submitted while A is
+   mid-iteration) and job S (the serve phase's serve, through a serve
+   factory registered here), with each job's slice set by its priority:
+   the train jobs' at MULTI_SLICE of their unscheduled planned peaks, the
+   serve job's at MULTI_SERVE_SLICE of its KV demand.  Gates: every job
+   done; both train jobs' final parameters and moments bit-identical to
+   the same iterations run alone and unscheduled; the global ledger peak
+   within the capacity and the allocator's within 1.05 x; the serve job's
+   tokens the golden run's, with evictions, no OOM and both KV kernels
+   launched.  One concurrent window is profiled (its device idle share).
+   Then ``hot_swap_full_width``: job A alone from an empty plan, a plan
+   for 0.8 of its planned peak requested at its first safe point after op
+   0, which must be spliced in once, swap out, and leave the outputs
+   bit-identical to the unscheduled step; and the cost of one copy stream
+   for every job (``shared_copy_stream_cost``).
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -84,6 +103,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -94,13 +114,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.core import (CostModel, DeviceCalibration,  # noqa: E402
-                              FxExecutor, MachineProfile, MemoryEngine,
+from repro_torch.core import (BudgetArbiter, CostModel,  # noqa: E402
+                              DeviceCalibration, FxExecutor, GlobalController,
+                              MachineProfile, MemoryEngine,
                               MemoryScheduler, Pipeline, SchedulerConfig,
-                              SchedulingPlan,
+                              SchedulingPlan, analyze,
                               build_pipeline, calibrate_cuda,
-                              capture_train_step, evaluate, schedule_single,
-                              simulate)
+                              capture_train_step, evaluate, find_safe_points,
+                              schedule_single, simulate)
 from repro_torch.core.passes import (CompressedOffloadPass,  # noqa: E402
                                      RecomputePass, SwapPass)
 import repro_torch.core.executor as tensile_executor  # noqa: E402
@@ -128,7 +149,10 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.ssm import mamba2_block  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.optim.adam import adamw_init  # noqa: E402
-from repro_torch.service.workloads import make_mlp, mlp_numpy  # noqa: E402
+from repro_torch.service import JobSpec, ServeParams  # noqa: E402
+from repro_torch.service.workloads import (  # noqa: E402
+    make_mlp, mlp_numpy, register_serve_workload, register_workload,
+    resolve_workload)
 import repro_torch.serving.engine as serving_engine  # noqa: E402
 from repro_torch.serving import ServingEngine, make_trace  # noqa: E402
 from repro_torch.serving.session import SeqState  # noqa: E402
@@ -177,7 +201,7 @@ QUICKSTART_CALIB = DeviceCalibration(flops=5e10, mem_bw=1e10)
 # the full-width TENSILE train step: the compressed plan is first planned
 # against this fraction of the unscheduled planned peak, which it cannot
 # reach; the budget is then the peak it reaches, the tightest it can hold
-TENSILE_ITERS = 3
+TENSILE_ITERS = 2
 FLOOR_FRACTION = 0.5
 # the compressed plan's pipeline: the three passes of
 # ``tensile+compressed-offload`` with the compressed pass first.  In the
@@ -192,6 +216,20 @@ COMPRESSED_FIRST = "compressed-first"
 PLAN_PATIENCE = SchedulerConfig().max_iterations
 # the card's allocator peak against the executor's ledger peak
 ALLOC_LEDGER_TOL = 0.05
+# multi_job: two train jobs of the train step above (batch, iterations,
+# seed) and a serve job of the serve phase's shape under one controller.
+# Each job's slice of the capacity, with all three live: the train jobs'
+# over their unscheduled planned peaks (the top of 0.75-0.85: the
+# autoscale pipeline's two-job plans stopped at 0.81-0.84 of the planned
+# peak when planned on a CPU with latencies scaled to the card's measured
+# ones), the serve job's over its KV demand (two of its four sequences)
+MULTI_JOBS = {"A": (TRAIN_B, 3, 0), "B": (2, 2, 1)}
+MULTI_SLICE = 0.85
+MULTI_SERVE_SLICE = 0.5
+MULTI_PIPELINE = "tensile+autoscale"
+TRAIN_WORKLOAD, SERVE_WORKLOAD = "tinyllama-train", "tinyllama-serve"
+# hot_swap_full_width: the requested plan's slice of the planned peak
+HOT_SWAP_SLICE = 0.8
 # A compressed step against the unscheduled (exact) step from the same
 # state.  Loss: |diff| / |value|.  Parameters and moments: per leaf, the
 # compressed step's update new_c - old against the exact step's new_e -
@@ -348,7 +386,7 @@ def without_determinism():
 
 
 def device_ms(fn, reps: int = 20, per_call: int = 1,
-              traces: int = 3) -> float:
+              traces: int = 5) -> float:
     """Mean device time per call of ``fn``, which issues ``per_call``
     kernels and copies: their time summed from a ``torch.profiler`` trace
     of ``reps`` calls, over ``reps``.  Only a trace that holds every one
@@ -1516,14 +1554,14 @@ def quant_device_ms(shape, dtype: str) -> dict:
     return out
 
 
-def in_fresh_process(phase: str, *args):
+def in_fresh_process(phase: str, *args, timeout: int = 600):
     """Run ``FRESH_PHASES[phase](*args)`` in a new process of this script
     and return its result; the child's log lines are printed here.  Late in
     a run, profiler traces lose events (``device_ms``); a fresh process's
     do not."""
     res = subprocess.run([sys.executable, os.path.abspath(__file__),
                           "--fresh", phase, json.dumps(args)],
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=timeout)
     if res.returncode != 0:
         raise AssertionError(f"{phase} failed in a fresh process:\n"
                              + res.stdout + res.stderr)
@@ -2182,6 +2220,516 @@ def tensile_train(link: dict, quant_bw: float) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the multi-job runtime
+# ----------------------------------------------------------------------
+def deterministic() -> None:
+    """Deterministic numerics, set before the first CUDA call."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+
+
+def full_width_serving(sp):
+    """The serve job's factory: the serve phase's engine (TinyLlama at
+    published width on the card; the builtin ``"lm"`` workload is
+    reduced) and the named trace."""
+    eng = ServingEngine(sp.arch, reduced=False,
+                        max_sequences=sp.max_sequences,
+                        max_len=sp.prompt_len + sp.gen_len, seed=sp.seed,
+                        device="cuda")
+    reqs = make_trace(sp.trace, sp.n_requests, seed=sp.seed,
+                      prompt_len=sp.prompt_len, gen_len=sp.gen_len,
+                      mean_gap=sp.mean_gap)
+    return eng, reqs
+
+
+def train_workload(cfg, api, step):
+    """The train jobs' factory: ``tensile_train``'s step (no remat) on a
+    fresh state, parameters from a CUDA generator seeded ``seed``, zero
+    AdamW moments, a fixed batch of ``batch`` x TRAIN_S tokens."""
+    def make(batch: int, seed: int):
+        params = dict(TransformerLM(cfg, device="cuda", generator=(
+            torch.Generator(device="cuda").manual_seed(seed)))
+            .named_parameters())
+        data = api.input_specs(ShapeSpec(f"multi_{seed}", TRAIN_S, batch,
+                                         "train"), abstract=False, seed=seed)
+        return step, params, adamw_init(params), data
+    return make
+
+
+def host_peak_bytes() -> int:
+    """This process's peak resident host memory."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def busy_ms(events) -> float:
+    """Milliseconds in which at least one of ``events`` ran (the union of
+    their spans: kernels of concurrent streams overlap)."""
+    total, end = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def _solo(gm, seq, profile, spec, iters: int, measure: bool = False,
+          against=None) -> dict:
+    """The job alone and unscheduled from a fresh state of its seed:
+    ``iters`` iterations, with ``measure`` the first synchronised per
+    operator (its latencies, as ``tensile_train`` measures them); wall
+    seconds, ledger and allocator peaks (net of what the card held before
+    the state).  With ``against`` (the leaves of the parameters and
+    moments another run reached), the positions of the leaves that differ
+    from this run's final ones, compared where each of ``against`` lies
+    (a leaf parked on the host against a host copy of this run's): no
+    host copy of a whole state is made."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    _, params, opt, batch = resolve_workload(spec)
+    n_state = len(pytree.tree_leaves([params, opt]))
+    batch_leaves = pytree.tree_leaves(batch)
+    state = pytree.tree_leaves([params, opt]) + batch_leaves
+    del params, opt
+    recs, latencies = [], None
+    for k in range(iters):
+        sync = measure and k == 0
+        ex = FxExecutor(gm, seq, None, engine=MemoryEngine(profile),
+                        measure_latency=sync)
+        outs, wall, alloc, ledger = _run_state(ex, state, base)
+        if sync:
+            latencies = ex.stats.op_latencies
+        recs.append({"wall_s": wall, "max_memory_allocated": alloc,
+                     "ledger_peak": ledger, "synchronised": sync})
+        state = outs[:n_state] + batch_leaves
+        del ex, outs
+    out = {"iterations": recs, "latencies": latencies}
+    if against is not None:
+        out["leaves"] = n_state
+        out["differ"] = [i for i, (x, y) in enumerate(zip(against, state))
+                         if len(against) != n_state
+                         or not torch.equal(x, y.to(x.device))]
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def shared_copy_stream_cost(reps: int = 10) -> dict:
+    """What one copy stream for every job costs a transfer: job X's
+    swap-out (64 MiB card to pinned host) waits on X's compute stream (four
+    bf16 8192^3 products) before it starts; job Y's prefetch (64 MiB pinned
+    host to card) is ready at once.  Y's latency from its issue to its
+    end, CUDA events, median of ``reps``, with Y's copy queued on X's copy
+    stream (shared) and on a stream of its own (separate), in turns."""
+    dev = torch.device("cuda")
+    a = torch.randn(8192, 8192, dtype=torch.bfloat16, device=dev)
+    n = 64 << 20
+    x_src = torch.empty(n, dtype=torch.uint8, device=dev)
+    x_dst = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    y_src = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    y_dst = torch.empty(n, dtype=torch.uint8, device=dev)
+    x_compute, y_compute = torch.cuda.Stream(), torch.cuda.Stream()
+    copy_x, copy_y = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def once(shared: bool) -> tuple:
+        torch.cuda.synchronize()
+        with torch.cuda.stream(x_compute):
+            c0 = torch.cuda.Event(enable_timing=True)
+            c0.record()
+            for _ in range(4):
+                a @ a
+            ready_x = x_compute.record_event(
+                torch.cuda.Event(enable_timing=True))
+        t0 = y_compute.record_event(torch.cuda.Event(enable_timing=True))
+        copy_x.wait_event(ready_x)
+        with torch.cuda.stream(copy_x):
+            x_dst.copy_(x_src, non_blocking=True)
+        cy = copy_x if shared else copy_y
+        cy.wait_event(t0)
+        with torch.cuda.stream(cy):
+            y_dst.copy_(y_src, non_blocking=True)
+            t1 = cy.record_event(torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1), c0.elapsed_time(ready_x)
+
+    for shared in (True, False):
+        once(shared)
+    runs = {True: [], False: []}
+    compute = []
+    for r in range(reps):
+        for shared in ((True, False) if r % 2 == 0 else (False, True)):
+            ms, c = once(shared)
+            runs[shared].append(ms)
+            compute.append(c)
+    out = {"shared_ms": statistics.median(runs[True]),
+           "separate_ms": statistics.median(runs[False]),
+           "x_compute_ms": statistics.median(compute)}
+    out["wait_ms"] = out["shared_ms"] - out["separate_ms"]
+    log("[multi_job] one copy stream, a prefetch behind another job's "
+        "gated swap-out: " + json.dumps(out))
+    return out
+
+
+def multi_job(link: dict) -> dict:
+    """The multi-job runtime at full width (see the module docstring):
+    returns the controller's record, the hot-swap phase's and the shared
+    copy stream's cost.  Runs in a fresh process (``in_fresh_process``):
+    its profile of a concurrent window loses no events to earlier
+    phases."""
+    deterministic()
+    cfg = dataclasses.replace(get_config(ARCH), remat="none")
+    api = get_model(cfg, "cuda")
+    step = build_functional_train_step(api, TrainStepConfig())
+    register_workload(TRAIN_WORKLOAD, train_workload(cfg, api, step))
+    register_serve_workload(SERVE_WORKLOAD, full_width_serving)
+    calib = calibrate_cuda()
+    profile = MachineProfile(host_link_bw=link["host_link_bw"],
+                             host_link_latency=link["host_link_latency"],
+                             dma_batch_overhead=link["dma_batch_overhead"])
+    gc = GlobalController(
+        profile=profile, cost_model=CostModel(calib), async_swap=True,
+        pipeline_name=MULTI_PIPELINE, arbiter_policy="priority",
+        arbiter_mode="preempt",
+        scheduler_config=SchedulerConfig(patience_iters=PLAN_PATIENCE))
+    specs = {j: JobSpec(j, workload=TRAIN_WORKLOAD, iterations=it,
+                        workload_params={"batch": b, "seed": seed})
+             for j, (b, it, seed) in MULTI_JOBS.items()}
+    specs["S"] = JobSpec("S", kind="serve", workload=SERVE_WORKLOAD,
+                         serve=ServeParams(
+                             arch=ARCH, max_sequences=MAX_SEQUENCES,
+                             n_requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+                             gen_len=GEN_LEN, trace="poisson", seed=0,
+                             block_tokens=4))
+    caps = {"S": timed("multi_job capture S", gc.capture_spec, specs["S"])}
+    eng, reqs = caps["S"].args
+    t0 = time.perf_counter()
+    gold_rep, golden = eng.serve(reqs, budget_bytes=None, schedule=False)
+    torch.cuda.synchronize()
+    gold_s = time.perf_counter() - t0
+    # what the card holds before the train states: the serve engine's
+    # weights and cache, which its ledger does not book
+    base = torch.cuda.memory_allocated()
+    for j in MULTI_JOBS:
+        caps[j] = timed(f"multi_job capture {j}", gc.capture_spec, specs[j])
+    # each job's operator latencies from one synchronised unscheduled
+    # iteration alone, from a fresh state of its seed
+    measured, planned, demand = {}, {}, {}
+    for j in MULTI_JOBS:
+        seq, gm = caps[j].seq, caps[j].graph_module
+        measured[j] = timed(f"multi_job latencies {j}", _solo, gm, seq,
+                            profile, specs[j], 1, True)
+        analytic_s = seq.iteration_time
+        seq.set_latencies(measured[j].pop("latencies"))
+        planned[j] = simulate([seq], None, profile, iterations=1,
+                              transfer_mode="sync").peak_bytes
+        demand[j] = analyze([seq], free_at_last_use=False).peak_bytes
+        log(f"[multi_job] {j}: {len(seq.operators)} operators; alone, "
+            f"synchronised per operator "
+            f"{json.dumps(measured[j]['iterations'])}; iteration time "
+            f"analytic {analytic_s:.4f} s, measured per operator "
+            f"{seq.iteration_time:.4f} s; planned peak {planned[j]} B, "
+            f"no-free peak {demand[j]} B")
+    demand["S"] = analyze([caps["S"].seq], free_at_last_use=False).peak_bytes
+    # each job's slice with all three live, as priorities of the
+    # priority policy: the capacity is their sum
+    target = {j: int(MULTI_SLICE * planned[j]) for j in MULTI_JOBS}
+    target["S"] = int(MULTI_SERVE_SLICE * demand["S"])
+    capacity = sum(target.values())
+    gc.arbiter.capacity = gc.accountant.capacity = capacity
+    specs = {j: dataclasses.replace(sp, priority=target[j] / 1e9)
+             for j, sp in specs.items()}
+    probe = BudgetArbiter(capacity, policy="priority")
+    for j in specs:
+        probe.register(j, priority=target[j] / 1e9, demand_bytes=demand[j])
+    split = probe.split(list(specs))
+    shares = {j: split[j] / planned[j] for j in MULTI_JOBS}
+    shares["S"] = split["S"] / demand["S"]
+    log(f"[multi_job] capacity {capacity} B; three-way split {split}; "
+        f"shares of the planned peaks (S: of its KV demand) "
+        f"{json.dumps(shares)}")
+    if not all(0.75 <= shares[j] <= 0.85 for j in MULTI_JOBS) \
+            or not shares["S"] < 1:
+        raise AssertionError(f"the split {shares} misses 0.75-0.85")
+
+    # ---- the controller's window: A, then B while A is mid-iteration,
+    # then S; the KV kernels' counts from 0 ------------------------------
+    kbc.kv_block_gather.launches = 0
+    kbc.kv_block_scatter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+    handles = {"A": gc.submit(specs["A"], caps.pop("A"))}
+    a = handles["A"]
+    while a.executor is None or a.executor.current_op_index <= 0:
+        if a.done:
+            break
+        time.sleep(0.001)
+    a_op = a.executor.current_op_index if a.executor is not None else None
+    handles["B"] = gc.submit(specs["B"], caps.pop("B"))
+    handles["S"] = gc.submit(specs["S"], caps.pop("S"))
+    submitted_s = time.perf_counter() - t_start
+    done_at = {}
+    # the allocator against the ledger, sampled by this thread: at the
+    # allocator's highest sample, and the largest gap between them
+    mem = {"samples": 0, "alloc_max": 0, "ledger_then": 0, "t": None,
+           "gap_max": 0, "gap_t": None, "ledger_max": 0,
+           "gap_max_all_started": 0}
+
+    def held() -> dict:
+        """Per running train job: the bytes of the distinct storages its
+        executor's store holds against the ledger's booking, and of the
+        swap-outs still on the wire whose value left the store."""
+        out = {}
+        for j, h in handles.items():
+            ex = h.executor
+            if j not in MULTI_JOBS or ex is None:
+                continue
+            seen = {}
+            for v in list(ex.device.values()):
+                st = v.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+            pending = [rec[2] for st, rec in list(ex._pending_out.items())
+                       if ex.device.get(st) is not rec[2]]
+            out[j] = {"store": sum(seen.values()),
+                      "booked": gc.accountant.job_bytes(j),
+                      "pending_out_off_store": len(pending),
+                      "pending_out_off_store_bytes": sum(
+                          v.untyped_storage().nbytes() for v in pending),
+                      "op": ex.current_op_index}
+        return out
+
+    def poll():
+        for j, h in handles.items():
+            if h.done and j not in done_at:
+                done_at[j] = time.perf_counter() - t_start
+        now = time.perf_counter() - t_start
+        used = torch.cuda.memory_allocated() - base
+        booked = gc.accountant.used
+        mem["samples"] += 1
+        mem["ledger_max"] = max(mem["ledger_max"], booked)
+        if used > mem["alloc_max"]:
+            mem.update(alloc_max=used, ledger_then=booked, t=now,
+                       held_then=held())
+        if used - booked > mem["gap_max"]:
+            mem.update(gap_max=used - booked, gap_t=now)
+        if now > submitted_s + 2 \
+                and used - booked > mem["gap_max_all_started"]:
+            mem.update(gap_max_all_started=used - booked,
+                       gap_all_started_t=now, held_at_gap=held())
+        time.sleep(0.005)
+
+    # one profiled concurrent iteration: A's next whole one.  A weak
+    # reference: an executor kept alive here would keep the tensors its
+    # store held when later iterations free them
+    ex0 = weakref.ref(a.executor)
+    while a.executor is ex0() and not a.done:
+        poll()
+    window = {"profiled": not a.done}
+    if not a.done:
+        from torch.profiler import ProfilerActivity
+        live = [j for j, h in handles.items() if not h.done]
+        n_a = len(a.step_times)
+        prof = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t_prof = time.perf_counter()
+        while len(a.step_times) == n_a and not a.done:
+            poll()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t_prof) * 1e3
+        prof.stop()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = [e for e in events if "Memcpy" in e.name]
+        window.update({
+            "a_iteration": n_a + 1, "wall_ms": prof_wall_ms,
+            "device_events": len(events), "device_busy_ms": busy_ms(events),
+            "kernel_ms_summed": sum(e.time_range.elapsed_us()
+                                    for e in events) / 1e3,
+            "copies": len(copies), "copy_busy_ms": busy_ms(copies),
+            "live_at_start": live,
+            "live_at_end": [j for j, h in handles.items() if not h.done]})
+        window["device_idle_share"] = (1 - window["device_busy_ms"]
+                                       / prof_wall_ms)
+        del prof, events, copies
+    log("[multi_job] profiled window (one iteration of A): "
+        + json.dumps(window))
+    deadline = time.perf_counter() + 900
+    while len(done_at) < len(handles) and time.perf_counter() < deadline:
+        poll()
+    gc.wait(timeout=60)
+    window_s = time.perf_counter() - t_start
+    if not all(h.done for h in handles.values()):
+        raise AssertionError(f"multi_job: jobs still running after "
+                             f"{window_s:.0f} s: {done_at}")
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - base
+    launches = {"kv_block_gather": kbc.kv_block_gather.launches,
+                "kv_block_scatter": kbc.kv_block_scatter.launches}
+
+    # the same iterations alone and unscheduled, from the same state,
+    # compared leaf by leaf with what each job reached
+    solo = {j: timed(f"multi_job solo {j}", _solo, handles[j].graph_module,
+                     handles[j].seq, profile, specs[j], it, False,
+                     pytree.tree_leaves(handles[j].args[:2]))
+            for j, (_, it, _) in MULTI_JOBS.items()}
+    jobs = {}
+    for j, h in handles.items():
+        rec = {"step_s": h.step_times, "ledger_peak": gc.accountant.job_peak(j),
+               "slice_final": h.budget_bytes,
+               "preemptions": h.preemptions, "plan_version": h.plan_version}
+        if j in MULTI_JOBS:
+            solo_s = [r["wall_s"] for r in solo[j]["iterations"]]
+            solo_peak = solo[j]["iterations"][0]["ledger_peak"]
+            rec.update({
+                "solo_step_s": solo_s,
+                "solo_synchronised_step_s":
+                    measured[j]["iterations"][0]["wall_s"],
+                "solo_ledger_peak": solo_peak,
+                "solo_max_memory_allocated":
+                    solo[j]["iterations"][0]["max_memory_allocated"],
+                "differing_leaves": solo[j]["differ"],
+                "planned_peak": planned[j],
+                "plan_predicted_peak": h.plan.planned_peak_bytes
+                if h.plan is not None else None,
+                "measured_MSR": 1 - rec["ledger_peak"] / solo_peak,
+                "measured_EOR": statistics.median(h.step_times)
+                / statistics.median(solo_s) - 1,
+                "executors": [{
+                    "hot_swaps": st.hot_swaps,
+                    "canceled_swap_ins": st.canceled_swap_ins,
+                    "swap_outs": st.swap_out_count,
+                    "swap_ins": st.swap_in_count,
+                    "passive_swap_ins": st.passive_swap_ins,
+                    "recomputes": st.recompute_count,
+                    "peak_bytes": st.peak_bytes} for st in h.stats]})
+        else:
+            rep = h.stats[-1]
+            rec.update({"wall_s": rep.total_time, "served": rep.served,
+                        "tokens": rep.tokens_generated,
+                        "oom_events": rep.oom_events,
+                        "evictions": rep.evictions,
+                        "prefetches": rep.prefetches,
+                        "peak_bytes": rep.peak_bytes,
+                        "golden_wall_s": gold_s})
+        jobs[j] = rec
+        log(f"[multi_job] job {j}: " + json.dumps(rec))
+    out = {"capacity": capacity, "shares": shares, "split": split,
+           "history": gc.arbiter.history,
+           "replan_count": gc.replan_count,
+           "replan_s": gc.replan_seconds,
+           "preempt_count": gc.preempt_count,
+           "replan_failures": [repr(e) for e in gc.replan_failures],
+           "preempt_failures": [repr(e) for e in gc.preempt_failures],
+           "a_op_at_b_submit": a_op, "submits_s": submitted_s,
+           "done_at_s": done_at, "window_s": window_s,
+           "sampled_memory": mem, "global_ledger_peak": gc.global_peak_bytes,
+           "ledger_oom_events": gc.accountant.oom_events,
+           "max_memory_allocated": alloc,
+           "alloc_over_capacity": alloc / capacity,
+           "alloc_over_ledger_peak": alloc / gc.global_peak_bytes,
+           "launches": launches, "profile": window, "jobs": jobs,
+           "host_peak_bytes": host_peak_bytes()}
+    log("[multi_job] " + json.dumps({k: v for k, v in out.items()
+                                      if k != "jobs"}))
+
+    # ---- gates ---------------------------------------------------------
+    bad = []
+    if gc.replan_failures or gc.preempt_failures:
+        bad.append("replan or preempt failures")
+    for j in MULTI_JOBS:
+        if solo[j]["differ"]:
+            bad.append(f"{j}: {len(solo[j]['differ'])} of "
+                       f"{solo[j]['leaves']} state leaves differ from the "
+                       "job run alone and unscheduled")
+    if gc.global_peak_bytes > capacity:
+        bad.append(f"global ledger peak {gc.global_peak_bytes} > capacity "
+                   f"{capacity}")
+    if alloc > (1 + ALLOC_LEDGER_TOL) * capacity:
+        bad.append(f"max_memory_allocated {alloc} > 1.05 x {capacity}")
+    s = handles["S"]
+    if s.outputs != golden:
+        bad.append("the serve job's tokens differ from the golden run")
+    if jobs["S"]["oom_events"] or jobs["S"]["evictions"] <= 0:
+        bad.append(f"serve: oom_events {jobs['S']['oom_events']}, "
+                   f"evictions {jobs['S']['evictions']}")
+    if min(launches.values()) <= 0:
+        bad.append(f"KV kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"multi_job: {bad}")
+    log(f"[multi_job] gates hold: both train jobs bit-identical to their "
+        f"solo runs, global ledger peak {gc.global_peak_bytes} <= "
+        f"{capacity}, allocator {alloc} B, serve tokens == golden, KV "
+        f"launches {launches}")
+
+    seq_a, gm_a = handles["A"].seq, handles["A"].graph_module
+    for h in handles.values():
+        h.args = None
+    del handles, a, s, eng, gc
+    torch.cuda.empty_cache()
+    hot = timed("hot_swap_full_width", hot_swap_full_width, gm_a, seq_a,
+                profile, specs["A"], planned["A"])
+    cost = timed("shared_copy_stream_cost", shared_copy_stream_cost)
+    return {"multi_job": out, "hot_swap": hot, "copy_stream": cost}
+
+
+def hot_swap_full_width(gm, seq, profile, spec, planned_peak: int) -> dict:
+    """Job A's step alone in one executor, async swaps on the card,
+    starting with an empty plan; ``request_plan`` hands it the plan
+    ``replan_from`` builds at its first safe point after op 0 for a slice
+    of HOT_SWAP_SLICE of its planned peak (``tests/test_hotswap.py``).
+    Gates: one hot-swap, to that plan; swap-outs; the outputs bit-identical
+    to the unscheduled step from the same state."""
+    torch.cuda.synchronize()
+    want = FxExecutor(gm, seq, None, engine=MemoryEngine(
+        profile)).run_donated(list(resolve_workload(spec)[1:]))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    prior = SchedulingPlan(job_id=seq.job_id)
+    safe = find_safe_points(seq, prior)
+    first = next(sp for sp in safe if sp.op_idx > 0)
+    budget = int(HOT_SWAP_SLICE * planned_peak)
+    pipe = build_pipeline(MULTI_PIPELINE, profile, SchedulerConfig(
+        patience_iters=PLAN_PATIENCE))
+    t0 = time.perf_counter()
+    newp = pipe.replan_from([seq], {seq.job_id: prior},
+                            {seq.job_id: first.op_idx},
+                            budgets={seq.job_id: budget}).plans[seq.job_id]
+    replan_s = time.perf_counter() - t0
+    ex = FxExecutor(gm, seq, prior, async_swap=True,
+                    engine=MemoryEngine(profile))
+    ex.request_plan(newp, {sp.op_idx for sp in safe
+                           if sp.op_idx >= first.op_idx})
+    outs, wall, alloc, ledger = _run_state(
+        ex, list(resolve_workload(spec)[1:]), base)
+    same = len(outs) == len(want) and all(
+        torch.equal(a, b.to(a.device)) for a, b in zip(outs, want))
+    out = {"safe_points": len(safe), "splice_op": first.op_idx,
+           "budget": budget, "planned_peak": planned_peak,
+           "plan_events": _event_counts(seq, newp),
+           "plan_predicted_peak": newp.planned_peak_bytes,
+           "replan_from_s": replan_s, "wall_s": wall,
+           "max_memory_allocated": alloc, "ledger_peak": ledger,
+           "hot_swaps": ex.stats.hot_swaps,
+           "canceled_swap_ins": ex.stats.canceled_swap_ins,
+           "swap_outs": ex.stats.swap_out_count,
+           "swap_ins": ex.stats.swap_in_count,
+           "recomputes": ex.stats.recompute_count,
+           "bit_identical_to_unscheduled": same}
+    log("[hot_swap_full_width] " + json.dumps(out))
+    if ex.stats.hot_swaps != 1 or ex.plan is not newp \
+            or ex.stats.swap_out_count <= 0 or not same:
+        raise AssertionError(f"hot_swap_full_width: {out}")
+    return out
+
+
 @contextlib.contextmanager
 def counting_swaps(counts: collections.Counter):
     """While active, count the executor's host copies (``out_``) and host
@@ -2243,11 +2791,7 @@ def main() -> int:
         # a child of in_fresh_process: the last line is the phase's result
         print(json.dumps(FRESH_PHASES[sys.argv[2]](*json.loads(sys.argv[3]))))
         return 0
-    # deterministic numerics, set before the first CUDA call
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.use_deterministic_algorithms(True)
+    deterministic()
 
     log(card_line())
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2353,6 +2897,18 @@ def main() -> int:
     log("[time] quant device ms " + json.dumps(qt_dev))
     torch.cuda.empty_cache()
 
+    # the multi-job runtime, in a fresh process: two full-width train jobs
+    # and a budgeted serve job under one controller, then the splice.  The
+    # pinned host memory this process's swaps left cached goes back first:
+    # the two processes share the host's memory
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", None)
+    if empty_host_cache is not None:
+        empty_host_cache()
+    log(f"[multi_job] peak host memory of this process: "
+        f"{host_peak_bytes()} B")
+    mj = timed("multi_job", lambda: in_fresh_process(
+        "multi_job", link, timeout=900))
+
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         tl = kv_times["tinyllama"]
@@ -2369,6 +2925,7 @@ def main() -> int:
             "library_device_ms": tl[name]["library_device_ms"],
             "shape": {"leaves": tl["leaves"], "k": tl["k"]},
             "launches_serve_ssm": ssm_serve["launches"][name],
+            "launches_multi_job": mj["multi_job"]["launches"][name],
             "mamba2_state": kv_times["mamba2_state"][name],
             "mamba2_state_bound_ms": kv_times["mamba2_state"]["bound_ms"],
             "restore_device_busy_ms": {
@@ -2441,7 +2998,8 @@ def main() -> int:
     return 0
 
 
-FRESH_PHASES = {"profile_restore": profile_restore,
+FRESH_PHASES = {"multi_job": multi_job,
+                "profile_restore": profile_restore,
                 "quant_device_ms": quant_device_ms,
                 "ssd_device_ms": ssd_device_ms}
 

@@ -13,11 +13,16 @@ al., 2021) for captured aten graphs on a CUDA card.
                                      records from both runtimes
     simulate / evaluate           -- discrete-event metrics (MSR/EOR/CBR)
     FxExecutor                    -- interpreting executor with real swaps to
-                                     pinned host memory
+                                     pinned host memory, plan hot-swap at
+                                     safe points
+    GlobalController / BudgetArbiter -- the multi-job runtime: one device
+                                     budget split across live jobs, each
+                                     on its own thread and stream
     baselines                     -- vanilla / vDNN_conv / Capuchin wrappers
 
 The planner modules are copies of the JAX package's; capture, the cost
-model's node rules and the executor are this package's own.
+model's node rules, the executor and the controller's runtime are this
+package's own.
 """
 from .access import (AccessSequence, AccessType, Operator, Phase, TensorKind,
                      TensorSpec, format_bytes)
@@ -30,6 +35,9 @@ from .engine import (DeviceLedger, DmaChannel, EngineTrace, JobContext,
 from .executor import (AsyncSwapExecutor, ExecutionStats, FxExecutor,
                        reference_outputs)
 from .graph_capture import CaptureSpec, capture, capture_train_step
+from .multiplexer import (ARBITER_MODES, ARBITER_POLICIES, BudgetArbiter,
+                          CapturedJob, GlobalController, JobFailedError,
+                          JobHandle)
 from .passes import (PIPELINES, BudgetAutoscalePass, CompressedOffloadPass,
                      PassiveProfilePass, Pipeline, PlanningPass,
                      PreemptiveReplanPass, PriorityPass, RecomputePass,

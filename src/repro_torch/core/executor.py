@@ -41,17 +41,24 @@ Two swap modes:
              most ``RUN_AHEAD`` operators ahead of the card, so poll points
              see completions near the time the plan expects them.
 On a CPU device the copy "stream" is the host itself: async transfers run
-at issue and complete at once.
+at issue and complete at once.  Several executors may share one copy stream
+(``copy_stream``; the multi-job ``GlobalController`` gives every job the
+device channel's stream), so the card orders all jobs' transfers as the
+one channel books them.
 
-Not ported yet (they serve the multi-job GlobalController): mid-iteration
-plan hot-swap (``request_plan``/``_maybe_hot_swap``) and
-``cancel_unstarted``.
+Mid-iteration plan hot-swap (preemptive arbitration): ``request_plan``
+hands a plan and its eligible safe points to a running executor; the run
+splices it in right after the plan events of the first eligible operator,
+when none of its prefetches is on the wire (queued prefetches not yet
+issued to the copy stream are cancelled, ``cancel_unstarted``, and their
+consumers swap in passively) and its own swap-outs have landed.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import operator
+import threading
 import time as _time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
@@ -81,6 +88,11 @@ class ExecutionStats:
     compressed_swaps: int = 0
     op_latencies: Optional[List[float]] = None
     stall_time_s: float = 0.0
+    # mid-iteration plan hot-swaps applied at a safe point
+    hot_swaps: int = 0
+    # queued (never issued) prefetches cancelled when a hot-swap revised
+    # the swap-ins already booked on the channel
+    canceled_swap_ins: int = 0
     # measured per-job residency timeline of THIS iteration, (t, bytes)
     # in hub time -- filled from the TelemetryHub when one is attached
     residency_timeline: Optional[List[tuple]] = None
@@ -161,15 +173,18 @@ class AsyncSwapExecutor:
     ``submit`` queues a transfer; ``flush`` issues the queue onto the
     stream behind an event of the compute stream, each same-direction run
     of up to ``MAX_BATCH`` as one ``channel.transfer_batch`` hold, and
-    records ``batches`` (the keys of each launch)."""
+    records ``batches`` (the keys of each launch).  ``stream`` is the copy
+    stream to issue on (a new one by default)."""
 
     MAX_BATCH = 8
 
-    def __init__(self, channel: DmaChannel, device: torch.device):
+    def __init__(self, channel: DmaChannel, device: torch.device,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.channel = channel
         self.device = device
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        self.stream = None
+        if device.type == "cuda":
+            self.stream = stream or torch.cuda.Stream(device)
         self.queue: List[Transfer] = []
         self.inflight: Dict[str, Transfer] = {}
         self.batches: List[List[str]] = []
@@ -216,6 +231,24 @@ class AsyncSwapExecutor:
             self.batches.append([t.key for t in batch])
             i = j
 
+    def cancel_unstarted(self, prefix: str = "") -> Optional[List[str]]:
+        """Cancel every transfer whose key starts with ``prefix`` that has
+        not started: still in the queue, never issued to the copy stream.
+        Returns None, cancelling nothing, when a matching transfer is on
+        the wire (issued, its event not yet reached: the caller must
+        defer), else the cancelled keys.  A consumer of a cancelled
+        prefetch finds no transfer in flight and swaps in passively
+        (``FxExecutor._ensure_input``)."""
+        if any(t.issued and not t.done() for k, t in self.inflight.items()
+               if k.startswith(prefix)):
+            return None
+        cancelled = [t.key for t in self.queue if t.key.startswith(prefix)]
+        self.queue = [t for t in self.queue
+                      if not t.key.startswith(prefix)]
+        for k in cancelled:
+            self.inflight.pop(k, None)
+        return cancelled
+
     def wait(self, key: str) -> None:
         """Order the compute stream after transfer ``key`` (device-side;
         the host does not block) and forget it."""
@@ -248,7 +281,8 @@ class FxExecutor:
                  measure_latency: bool = False,
                  host_resident_inputs: Optional[Set[str]] = None,
                  engine: Optional[MemoryEngine] = None,
-                 telemetry: Optional[TelemetryHub] = None):
+                 telemetry: Optional[TelemetryHub] = None,
+                 copy_stream: Optional["torch.cuda.Stream"] = None):
         self.gm = graph_module
         self.layout = graph_layout(graph_module)
         self.seq = seq
@@ -266,6 +300,7 @@ class FxExecutor:
         self.channel = self.engine.channel
         self.async_swap = async_swap
         self.async_exec: Optional[AsyncSwapExecutor] = None
+        self.copy_stream = copy_stream
         self.measure_latency = measure_latency
         # storages whose *input* value starts on host (previous iteration's
         # cross-iteration swap-out; paper Fig. 1(c) steady state)
@@ -292,6 +327,65 @@ class FxExecutor:
         self._borrowed: Set[int] = set()
         self.dev: Optional[torch.device] = None
         self._compute = None          # the compute stream on a CUDA card
+        # pending mid-iteration plan hot-swap: (plan, eligible safe ops),
+        # set by the controller's thread, consumed at a safe point in run
+        self._plan_lock = threading.Lock()
+        self._pending_plan: Optional[Tuple[SchedulingPlan,
+                                           frozenset]] = None
+
+    # ------------------------------------------------------------------
+    @property
+    def current_op_index(self) -> int:
+        """Index of the operator being executed (-1 before the first): the
+        controller reads it to pick a safe point still ahead of the run
+        when it requests a plan hot-swap."""
+        return self._cur_idx
+
+    def request_plan(self, plan: SchedulingPlan, safe_ops) -> None:
+        """Thread-safe mid-iteration plan hot-swap request.  The plan is
+        spliced in at the next operator in ``safe_ops`` the run reaches
+        with no transfer of this job on the wire.  A later request
+        supersedes an unapplied earlier one; if no listed safe point
+        remains this iteration, the request never fires (the controller's
+        boundary plan covers it)."""
+        with self._plan_lock:
+            self._pending_plan = (plan, frozenset(safe_ops))
+
+    def _maybe_hot_swap(self, idx: int) -> None:
+        """Splice the pending plan in if operator ``idx`` is an eligible
+        safe point: on the executor's thread, right after the operator's
+        plan events and before its transfers are issued, the simulator's
+        splice instant.  Prefetches this job queued and has not issued are
+        cancelled (the new plan books again what it needs; a consumer of a
+        cancelled prefetch swaps in passively); one on the wire defers the
+        splice to the next safe point and cancels nothing.  The job's own
+        swap-outs are then issued and waited for, so the plan changes over
+        a quiescent job."""
+        if self._pending_plan is None:
+            return
+        with self._plan_lock:
+            if self._pending_plan is None:
+                return
+            plan, safe_ops = self._pending_plan
+            if idx not in safe_ops:
+                return
+            cancelled: List[str] = []
+            if self.async_exec is not None:
+                cancelled = self.async_exec.cancel_unstarted("in:")
+                if cancelled is None:
+                    return
+            self._poll_swap_outs(block=True)
+            self.stats.canceled_swap_ins += len(cancelled)
+            self.plan = plan
+            self.ctx.set_plan(plan)
+            self.stats.hot_swaps += 1
+            self._pending_plan = None
+            rec = self.engine.recorder
+            if rec is not None:
+                t = self.telemetry.now() if self.telemetry is not None \
+                    else 0.0
+                rec.instant("hot_swap", t, job_id=self.ctx.job_id,
+                            site="safe-point", op_idx=idx)
 
     # ------------------------------------------------------------------
     def _st(self, tid: str) -> str:
@@ -655,14 +749,18 @@ class FxExecutor:
         if self.dev.type == "cuda":
             self._compute = torch.cuda.current_stream(self.dev)
         if self.async_swap:
-            self.async_exec = AsyncSwapExecutor(self.channel, self.dev)
+            self.async_exec = AsyncSwapExecutor(self.channel, self.dev,
+                                                self.copy_stream)
         # absorb host values preloaded between iterations
         self.ctx.host |= set(self.host)
         for tid, st, val in stores:
             if st in self.host_resident_inputs:
                 # previous iteration parked this storage on host; it enters
-                # the device only via its planned swap-in (or passively)
-                self._host_put(st, self._host_input(val))
+                # the device only via its planned swap-in (or passively).
+                # A host copy carried over with it (preloaded into
+                # ``self.host``: the value came from it) is kept as it is
+                if st not in self.host:
+                    self._host_put(st, self._host_input(val))
             else:
                 self._put_device(tid, val if val.device == self.dev
                                  else val.to(self.dev))
@@ -730,6 +828,9 @@ class FxExecutor:
                 elif ev.event_type is EventType.RECOMPUTE:
                     self.engine.record("recompute", self.ctx, st)
                     self._recompute(ev.tensor_id)
+            # preemptive arbitration: splice a pending plan in at a safe
+            # point (after this op's events, before its transfers issue)
+            self._maybe_hot_swap(idx)
             if self.async_exec is not None:
                 self.async_exec.flush()
             if throttle is not None:

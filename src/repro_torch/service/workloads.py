@@ -1,16 +1,33 @@
-"""Train-step workloads for TENSILE, as step functions over pytrees.
+"""Workloads for TENSILE: the train-step factories, and the registry that
+resolves a ``JobSpec.workload`` reference to a payload.
 
-``make_mlp`` is the JAX package's canonical smoke workload
-(``service/workloads.py``): a tanh MLP with a mean-squared-error loss and
-one AdamW step.  Its weights and data are numpy arrays (the caller's, e.g.
-the JAX package's drawn ones, or numpy draws from ``seed``) moved onto the
-device by ``convert.tree_from_numpy``; torch's RNG draws nothing.  The
-parameter tree is a list of ``{"b", "w"}`` dicts, whose leaves flatten in
-the reference's order.
+A *payload* is the tuple ``(step_fn, params, opt_state, batch)`` that
+``GlobalController`` captures and runs.  Resolution order (the JAX
+package's ``service/workloads.py``):
+
+1. ``spec.payload``, the in-process escape hatch, wins outright.
+2. A name registered with :func:`register_workload`.
+3. A ``"module:attr"`` import path to a factory with the same signature.
+
+Factories take ``**spec.workload_params``.  The builtin ``"mlp"`` workload
+is ``make_mlp``: the JAX package's canonical smoke workload, a tanh MLP
+with a mean-squared-error loss and one AdamW step.  Its weights and data
+are numpy arrays (the caller's, e.g. the JAX package's drawn ones, or numpy
+draws from ``seed``) moved onto the device by ``convert.tree_from_numpy``;
+torch's RNG draws nothing.  The parameter tree is a list of ``{"b", "w"}``
+dicts, whose leaves flatten in the reference's order.
+
+Serving jobs (``spec.kind == "serve"``) resolve through a parallel
+registry: a *serve factory* takes the spec's ``ServeParams`` and returns
+``(serving_engine, requests)``.  The builtin ``"lm"`` serve workload,
+``make_lm_serving``, builds both from the named (reduced) model config and
+trace generator; a caller registers its own factory for another shape
+(``register_serve_workload``).
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+import importlib
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +35,97 @@ import torch.utils._pytree as pytree
 
 from ..convert import tree_from_numpy
 from ..optim.adam import adamw_init, adamw_step
+from .jobspec import JobSpec
+
+Payload = Tuple[Any, Any, Any, Any]
+WorkloadFactory = Callable[..., Payload]
+ServeFactory = Callable[..., Tuple[Any, Any]]
+
+_REGISTRY: Dict[str, WorkloadFactory] = {}
+_SERVE_REGISTRY: Dict[str, ServeFactory] = {}
+
+
+def register_workload(name: str, factory: WorkloadFactory) -> None:
+    """Register ``factory`` under ``name`` (overwrites an existing entry)."""
+    if not name or ":" in name:
+        raise ValueError(f"invalid workload name {name!r}")
+    _REGISTRY[name] = factory
+
+
+def registered_workloads() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def _import_factory(spec: JobSpec, name: str, what: str):
+    mod_name, _, attr = name.partition(":")
+    try:
+        return getattr(importlib.import_module(mod_name), attr)
+    except (ImportError, AttributeError) as exc:
+        raise ValueError(f"job {spec.job_id!r}: cannot import {what} "
+                         f"{name!r}: {exc}") from exc
+
+
+def resolve_workload(spec: JobSpec) -> Payload:
+    """Resolve ``spec`` to ``(step_fn, params, opt_state, batch)``.
+
+    Raises ``ValueError`` when the spec names nothing resolvable."""
+    if spec.payload is not None:
+        return spec.payload  # type: ignore[return-value]
+    if not spec.workload:
+        raise ValueError(
+            f"job {spec.job_id!r}: spec has neither payload nor workload")
+    factory = _REGISTRY.get(spec.workload)
+    if factory is None and ":" in spec.workload:
+        factory = _import_factory(spec, spec.workload, "workload")
+    if factory is None:
+        raise ValueError(
+            f"job {spec.job_id!r}: unknown workload {spec.workload!r} "
+            f"(registered: {', '.join(registered_workloads()) or 'none'})")
+    return factory(**dict(spec.workload_params))
+
+
+def register_serve_workload(name: str, factory: ServeFactory) -> None:
+    """Register a serve factory: ``factory(serve_params) -> (engine,
+    requests)``.  Overwrites an existing entry."""
+    if not name or ":" in name:
+        raise ValueError(f"invalid serve workload name {name!r}")
+    _SERVE_REGISTRY[name] = factory
+
+
+def registered_serve_workloads() -> Tuple[str, ...]:
+    return tuple(sorted(_SERVE_REGISTRY))
+
+
+def resolve_serve_workload(spec: JobSpec) -> Tuple[Any, Any]:
+    """Resolve a ``kind="serve"`` spec to ``(serving_engine, requests)``;
+    an unresolvable spec raises ``ValueError``."""
+    if spec.kind != "serve":
+        raise ValueError(f"job {spec.job_id!r}: not a serve spec")
+    name = spec.workload or "lm"
+    factory = _SERVE_REGISTRY.get(name)
+    if factory is None and ":" in name:
+        factory = _import_factory(spec, name, "serve workload")
+    if factory is None:
+        raise ValueError(
+            f"job {spec.job_id!r}: unknown serve workload {name!r} "
+            f"(registered: {', '.join(registered_serve_workloads()) or 'none'})")
+    return factory(spec.serve)
+
+
+def make_lm_serving(sp, device=None) -> Tuple[Any, Any]:
+    """Builtin ``"lm"`` serve workload: a ``ServingEngine`` over the named
+    model config, reduced as in the JAX package, on ``device`` (default
+    ``cuda``), and the named deterministic trace."""
+    from ..serving.engine import ServingEngine
+    from ..serving.traces import make_trace
+
+    engine = ServingEngine(sp.arch, max_sequences=sp.max_sequences,
+                           max_len=sp.prompt_len + sp.gen_len, seed=sp.seed,
+                           device=device)
+    requests = make_trace(sp.trace, sp.n_requests, seed=sp.seed,
+                          prompt_len=sp.prompt_len, gen_len=sp.gen_len,
+                          mean_gap=sp.mean_gap)
+    return engine, requests
 
 # size-class presets shared with the reference's scenario suite
 MLP_SIZE_PRESETS = {
@@ -93,3 +201,7 @@ def make_mlp(sizes: Optional[Sequence[int]] = None,
     tparams = tree_from_numpy(params, device)
     tdata = tuple(tree_from_numpy(list(data), device))
     return mlp_train_step, tparams, adamw_init(tparams), tdata
+
+
+register_workload("mlp", make_mlp)
+register_serve_workload("lm", make_lm_serving)

@@ -1,5 +1,7 @@
 """The port's executor on the card (marked ``cuda``; each test skips
-without one): the copy stream's ordering against the compute stream.
+without one): the copy stream's ordering against the compute stream, a
+plan splice deferred by a prefetch on the wire, and the controller's one
+copy stream for every job.
 This file imports no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_executor.py
@@ -184,3 +186,86 @@ def test_scheduled_step_after_a_budgeted_ssm_serve_is_bit_identical(
             assert ex.stats.swap_in_count > 0, name
             assert all(torch.equal(a.cpu(), b.cpu())
                        for a, b in zip(got, want)), name
+
+
+@pytest.mark.cuda
+def test_splice_defers_while_a_prefetch_is_on_the_wire():
+    """A prefetch issued behind a spin kernel on the compute stream is on
+    the wire (issued, its event not reached): ``cancel_unstarted`` returns
+    None and cancels nothing, even a queued prefetch, so a plan requested
+    at this safe point waits; at the next safe point, the copy landed, it
+    is spliced in."""
+    _need_card()
+    ex = _fetcher()
+    ex.async_exec = AsyncSwapExecutor(ex.channel, ex.dev)
+    x = torch.randn(1 << 22, generator=torch.Generator().manual_seed(0))
+    for st in ("x", "y"):
+        ex.host[st] = HostCopy(x.pin_memory(), tuple(x.shape),
+                               tuple(x.stride()), x.dtype, False)
+    with torch.cuda.stream(ex.async_exec.stream):     # warm-up
+        ex._host_fetch("x")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)          # the compute stream spins
+    ex._swap_in("x", passive=False)
+    ex.async_exec.flush()                   # issued behind the spin
+    ex._swap_in("y", passive=False)         # queued, not issued
+    assert ex.async_exec.cancel_unstarted("in:") is None
+    assert [t.key for t in ex.async_exec.queue] == ["in:y"]
+    prior = ex.plan
+    newp = tc.SchedulingPlan(ex.seq.job_id)
+    ex.request_plan(newp, {5, 6})
+    ex._maybe_hot_swap(5)
+    assert ex.stats.hot_swaps == 0 and ex.plan is prior
+    assert ex._pending_plan is not None
+    assert set(ex.async_exec.inflight) == {"in:x", "in:y"}
+    torch.cuda.synchronize()
+    ex._maybe_hot_swap(6)
+    assert ex.stats.hot_swaps == 1 and ex.plan is newp
+    assert ex.stats.canceled_swap_ins == 1       # y, never issued
+    assert set(ex.async_exec.inflight) == {"in:x"}  # landed, not consumed
+    ex.async_exec.wait("in:x")
+    assert torch.equal(ex.device["x"].cpu(), x) and "y" not in ex.device
+
+
+@pytest.mark.cuda
+def test_two_jobs_transfers_issue_on_one_copy_stream(monkeypatch):
+    """Under the controller every job's transfers go onto the device
+    channel's one copy stream, each job computing on a stream of its own,
+    and each job's result is the unscheduled step's bit for bit."""
+    _need_card()
+    from repro_torch.core import executor as executor_mod
+    from repro_torch.service import JobSpec
+    from repro_torch.service.workloads import make_mlp
+
+    streams = []
+
+    class Recording(AsyncSwapExecutor):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            streams.append((torch.cuda.current_stream(), self.stream))
+
+    monkeypatch.setattr(executor_mod, "AsyncSwapExecutor", Recording)
+    payloads = {j: make_mlp((256, 1024, 1024, 16), 64, seed=s,
+                            device="cuda") for s, j in enumerate("ab")}
+    want = {}
+    with _Deterministic():
+        for j, (step, params, opt, batch) in payloads.items():
+            seq, gm = tc.capture_train_step(step, params, opt, batch)
+            want[j] = tc.FxExecutor(gm, seq, None).run(params, opt, batch)
+        gc = tc.GlobalController(profile=tc.MachineProfile(),
+                                 pipeline_name="tensile+autoscale",
+                                 arbiter_policy="equal",
+                                 device_capacity=40 << 20)
+        handles = [gc.submit(JobSpec(j, iterations=1, payload=p))
+                   for j, p in payloads.items()]
+        gc.wait(timeout=300)
+    assert len(streams) == 2
+    assert all(copy is gc.copy_stream for _, copy in streams)
+    compute = [c for c, _ in streams]
+    assert compute[0] != compute[1]
+    assert torch.cuda.default_stream() not in compute
+    assert any(h.stats[0].swap_out_count for h in handles)
+    for h in handles:
+        got = torch.utils._pytree.tree_leaves(h.args[:2])
+        assert all(torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(got, want[h.job_id]))

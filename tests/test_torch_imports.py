@@ -14,15 +14,16 @@ from repro_torch.configs import get_config
 from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# the TENSILE loop's and the SSM slice's modules: each must be among those
-# walked and checked
+# the TENSILE loop's, the SSM slice's and the multi-job runtime's modules:
+# each must be among those walked and checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
     "core.pass_state", "core.engine", "core.swap_planner",
     "core.recompute_planner", "core.passes", "core.scheduler",
     "core.simulator", "core.baselines", "core.cost_model",
     "core.graph_capture", "core.executor", "kernels.offload_quant",
-    "service.workloads", "optim.adam", "models.ssm", "kernels.ssd_scan")]
+    "service.workloads", "optim.adam", "models.ssm", "kernels.ssd_scan",
+    "core.multiplexer", "service.jobspec", "obs.events")]
 
 
 def test_port_and_chip_smoke_import_no_jax():
