@@ -69,7 +69,7 @@ random weights from seed 0):
 5. The multi-job runtime (``multi_job``, in a fresh process): one
    ``GlobalController`` on the card's profile (``tensile+autoscale``,
    async swaps, priority arbitration in ``preempt`` mode) runs job A (the
-   train step above, 3 iterations), job B (the same model at B 2, 2
+   train step above, 2 iterations), job B (the same model at B 2, 2
    iterations, captured before A starts and submitted while A is
    mid-iteration) and job S (the serve phase's serve, through a serve
    factory registered here), with each job's slice set by its priority:
@@ -85,6 +85,35 @@ random weights from seed 0):
    0, which must be spliced in once, swap out, and leave the outputs
    bit-identical to the unscheduled step; and the cost of one copy stream
    for every job (``shared_copy_stream_cost``).
+6. The experience plane, two fresh processes over one store in a
+   temporary directory outside the checkout, both given the link rate this
+   process measured (it salts every fingerprint).  ``experience_cold``: a
+   controller as ``multi_job``'s (``priority`` policy, one job live) over
+   the empty store, with a drift monitor, each job held to its slice
+   (``hold_slices``) and a cost model of the card's measured calibration
+   with the executor's per-operator floor as its overhead
+   (``executor_floor``), runs job A (the train step above, 2 iterations,
+   seed 0) at EXPERIENCE_SLICE of the planned peak of its capture (the
+   capture's cost-model latencies: no solo run); a second controller over
+   the same store, with no explicit cost model (it starts from the
+   calibration A's run stored), runs job B (B 2, 1 iteration, seed 1)
+   likewise; then a ``LatencyMLP`` is fitted on the card to A's measured
+   operators and A is captured again with it.  ``experience_warm``: a new controller
+   over the store with no explicit cost model captures A, predicts its
+   peak and runs it at the cold capacity; then the ``peak`` policy splits
+   A and B with and without the store's priors (host only).  Gates: the
+   same fingerprint in both processes; the warm prediction is the peak the
+   cold run measured, source ``experience``; the warm cost model is the
+   stored calibration; A's first warm plan is a verified ``warm-boot``
+   within its capacity; no compressed event; A's final parameters and
+   moments hash the same in both runs; the cold drift sample exceeds 0.15
+   with a WARN event and the warm one is smaller; both samples in the
+   store's drift history; no experience failure; B's cost model is the
+   calibration A stored; each run's global ledger peak within its capacity
+   and the allocator's within 1.05 x (each executor's budget guard waits
+   for its swap-outs, or swaps out more, where a plan exceeds the slice or
+   its model misjudges the card); the predictor's loss falls and its R² is
+   finite.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -95,13 +124,16 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import weakref
 
@@ -115,12 +147,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import (BudgetArbiter, CostModel,  # noqa: E402
-                              DeviceCalibration, FxExecutor, GlobalController,
-                              MachineProfile, MemoryEngine,
+                              DeviceCalibration, ExperienceStore, FxExecutor,
+                              GlobalController, LatencyMLP, MachineProfile,
+                              MemoryEngine, device_identity, fingerprint,
                               MemoryScheduler, Pipeline, SchedulerConfig,
                               SchedulingPlan, analyze,
                               build_pipeline, calibrate_cuda,
-                              capture_train_step, evaluate, find_safe_points,
+                              capture_train_step, evaluate, executor_floor,
+                              find_safe_points,
                               schedule_single, simulate)
 from repro_torch.core.passes import (CompressedOffloadPass,  # noqa: E402
                                      RecomputePass, SwapPass)
@@ -148,6 +182,8 @@ from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.ssm import mamba2_block  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
+from repro_torch.obs import (DriftMonitor, EventLog,  # noqa: E402
+                             MetricsRegistry)
 from repro_torch.optim.adam import adamw_init  # noqa: E402
 from repro_torch.service import JobSpec, ServeParams  # noqa: E402
 from repro_torch.service.workloads import (  # noqa: E402
@@ -222,14 +258,29 @@ ALLOC_LEDGER_TOL = 0.05
 # over their unscheduled planned peaks (the top of 0.75-0.85: the
 # autoscale pipeline's two-job plans stopped at 0.81-0.84 of the planned
 # peak when planned on a CPU with latencies scaled to the card's measured
-# ones), the serve job's over its KV demand (two of its four sequences)
-MULTI_JOBS = {"A": (TRAIN_B, 3, 0), "B": (2, 2, 1)}
+# ones), the serve job's over its KV demand (two of its four sequences).
+# Each train iteration under the controller ends in a replan of 10-80 s
+# (PERF.md): A runs 2 iterations (3 until the experience phases needed the
+# time) and B 2, so B's first boundary falls while A runs and its second
+# iteration starts from the state it parked on the host
+MULTI_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 2, 1)}
 MULTI_SLICE = 0.85
 MULTI_SERVE_SLICE = 0.5
 MULTI_PIPELINE = "tensile+autoscale"
 TRAIN_WORKLOAD, SERVE_WORKLOAD = "tinyllama-train", "tinyllama-serve"
 # hot_swap_full_width: the requested plan's slice of the planned peak
 HOT_SWAP_SLICE = 0.8
+# experience_cold / experience_warm: job A (the train step above) and job B
+# (B 2) as (batch, iterations, seed).  Each runs alone under a controller
+# of its own at EXPERIENCE_SLICE of the planned peak of its capture, planned
+# from the capture's cost-model latencies with no solo run first: the cold
+# start is what is measured
+EXPERIENCE_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 1, 1)}
+EXPERIENCE_SLICE = MULTI_SLICE
+# the drift monitor's default threshold (obs/drift.py)
+DRIFT_THRESHOLD = 0.15
+# the cold-start predictor's fit on A's measured operators
+MLP_FIT = {"steps": 2000, "lr": 3e-3, "train_share": 0.8, "seed": 0}
 # A compressed step against the unscheduled (exact) step from the same
 # state.  Loss: |diff| / |value|.  Parameters and moments: per leaf, the
 # compressed step's update new_c - old against the exact step's new_e -
@@ -2245,13 +2296,14 @@ def full_width_serving(sp):
     return eng, reqs
 
 
-def train_workload(cfg, api, step):
+def train_workload(cfg, api, step, device: str = "cuda"):
     """The train jobs' factory: ``tensile_train``'s step (no remat) on a
-    fresh state, parameters from a CUDA generator seeded ``seed``, zero
-    AdamW moments, a fixed batch of ``batch`` x TRAIN_S tokens."""
+    fresh state, parameters from a generator on ``device`` seeded
+    ``seed``, zero AdamW moments, a fixed batch of ``batch`` x TRAIN_S
+    tokens."""
     def make(batch: int, seed: int):
-        params = dict(TransformerLM(cfg, device="cuda", generator=(
-            torch.Generator(device="cuda").manual_seed(seed)))
+        params = dict(TransformerLM(cfg, device=device, generator=(
+            torch.Generator(device=device).manual_seed(seed)))
             .named_parameters())
         data = api.input_specs(ShapeSpec(f"multi_{seed}", TRAIN_S, batch,
                                          "train"), abstract=False, seed=seed)
@@ -2730,6 +2782,414 @@ def hot_swap_full_width(gm, seq, profile, spec, planned_peak: int) -> dict:
     return out
 
 
+def _experience_env(link: dict, device: str = "cuda", cfg=None):
+    """What both experience phases share: the train workload registered
+    as ``multi_job`` registers it, A's and B's specs, and the card's
+    profile from the parent's one link measurement (``device_identity``
+    salts every fingerprint with the link rate, so both processes must
+    build the same profile)."""
+    if device == "cuda":
+        deterministic()
+    cfg = cfg or dataclasses.replace(get_config(ARCH), remat="none")
+    api = get_model(cfg, device)
+    step = build_functional_train_step(api, TrainStepConfig())
+    register_workload(TRAIN_WORKLOAD, train_workload(cfg, api, step, device))
+    profile = MachineProfile(host_link_bw=link["host_link_bw"],
+                             host_link_latency=link["host_link_latency"],
+                             dma_batch_overhead=link["dma_batch_overhead"])
+    specs = {j: JobSpec(j, workload=TRAIN_WORKLOAD, iterations=it,
+                        workload_params={"batch": b, "seed": seed})
+             for j, (b, it, seed) in EXPERIENCE_JOBS.items()}
+    return profile, specs
+
+
+class TimedStore(ExperienceStore):
+    """The experience store, with the seconds of each ``record_job`` and
+    ``flush`` (the controller makes both under its lock)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.seconds = {"record_job": [], "flush": []}
+
+    def record_job(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return super().record_job(*args, **kw)
+        finally:
+            self.seconds["record_job"].append(time.perf_counter() - t0)
+
+    def flush(self):
+        t0 = time.perf_counter()
+        try:
+            return super().flush()
+        finally:
+            self.seconds["flush"].append(time.perf_counter() - t0)
+
+
+def _experience_controller(profile, store_dir: str, device: str = "cuda",
+                           **kw):
+    """A controller over the store at ``store_dir`` (the store
+    ``experience_dir`` would make, built here so the drift monitor writes
+    into it), with a drift monitor, as ``multi_job``'s: ``tensile+
+    autoscale``, async swaps, the ``priority`` policy, PLAN_PATIENCE; and
+    each job held to its slice (``hold_slices``: the cold plans of this
+    width can exceed it, PERF.md)."""
+    events = EventLog()
+    store = TimedStore(store_dir, device_id=device_identity(profile))
+    drift = DriftMonitor(experience=store, metrics=MetricsRegistry(),
+                         events=events)
+    return GlobalController(
+        profile=profile, async_swap=True, pipeline_name=MULTI_PIPELINE,
+        arbiter_policy="priority", experience=store, events=events,
+        drift=drift, device=device, hold_slices=True,
+        scheduler_config=SchedulerConfig(patience_iters=PLAN_PATIENCE),
+        **kw)
+
+
+def _allocated(device: str) -> int:
+    if device != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _plan_record(plan) -> dict:
+    kinds = collections.Counter(ev.event_type.value for ev in plan.events)
+    return {"events": len(plan.events), "kinds": dict(kinds),
+            "compressed": sum(bool(ev.compressed) for ev in plan.events),
+            "planned_peak": plan.planned_peak_bytes,
+            "budget": plan.budget_bytes,
+            "warm_boot": [dict(p) for p in plan.provenance
+                          if p.get("action") == "warm-boot"]}
+
+
+def state_digest(state) -> str:
+    """sha256 over every leaf of ``state`` (shape, dtype, then the bytes,
+    copied to the host one leaf at a time), wherever each leaf lies."""
+    h = hashlib.sha256()
+    for t in pytree.tree_leaves(state):
+        h.update(repr((tuple(t.shape), str(t.dtype))).encode())
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _experience_job(gc, spec, device: str, capacity=None) -> tuple:
+    """One train job alone under ``gc``: captured, its peak predicted, its
+    capacity (default EXPERIENCE_SLICE of the planned peak of its capture)
+    set, submitted and waited for.  Returns the record and the handle."""
+    base = _allocated(device)
+    t0 = time.perf_counter()
+    cap = gc.capture_spec(spec)
+    capture_s = time.perf_counter() - t0
+    seq = cap.seq
+    # the capture's timeline (the run folds measured latencies into it)
+    iteration_s = seq.iteration_time
+    # the store's fingerprint is cached per sequence: an uncached one under
+    # another salt costs what a first lookup or flush pays
+    t0 = time.perf_counter()
+    fingerprint(seq, device_id="uncached")
+    fingerprint_s = time.perf_counter() - t0
+    predicted = gc.predict_peak(seq)
+    planned = simulate([seq], None, gc.profile, iterations=1,
+                       transfer_mode="sync").peak_bytes
+    capacity = capacity or int(EXPERIENCE_SLICE * planned)
+    gc.arbiter.capacity = gc.accountant.capacity = capacity
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = gc.submit(spec, cap)
+    submit_s = time.perf_counter() - t0
+    del cap
+    first = _plan_record(h.plan)
+    gc.wait(timeout=900)
+    run_s = time.perf_counter() - t0
+    alloc = (torch.cuda.max_memory_allocated() - base
+             if device == "cuda" else 0)
+    measured = max(h.peak_bytes, gc.accountant.job_peak(spec.job_id))
+    sample = gc.drift.last(h.fingerprint)
+    rec = {
+        "job": spec.job_id, "fingerprint": h.fingerprint,
+        "operators": len(seq.operators), "capture_s": capture_s,
+        "iteration_s": iteration_s,
+        "measured_timeline_s": seq.iteration_time,
+        "fingerprint_s": fingerprint_s, "predicted": list(predicted),
+        "planned_peak": planned,
+        "no_free_peak": analyze([seq], free_at_last_use=False).peak_bytes,
+        "capacity": capacity, "submit_s": submit_s,
+        "first_plan_s": gc.replan_seconds[0],
+        "replan_s": gc.replan_seconds, "first_plan": first,
+        "final_plan": _plan_record(h.plan), "plan_version": h.plan_version,
+        "step_s": h.step_times, "run_s": run_s,
+        "executors": [{"swap_outs": st.swap_out_count,
+                       "budget_waits": st.budget_waits,
+                       "budget_wait_s": st.budget_wait_s,
+                       "budget_evictions": st.budget_evictions,
+                       "swap_ins": st.swap_in_count,
+                       "passive_swap_ins": st.passive_swap_ins,
+                       "recomputes": st.recompute_count,
+                       "compressed_swaps": st.compressed_swaps,
+                       "hot_swaps": st.hot_swaps,
+                       "peak_bytes": st.peak_bytes} for st in h.stats],
+        "measured_peak": measured,
+        "stored": list(gc.experience.predicted_peak(seq) or ()),
+        "global_ledger_peak": gc.global_peak_bytes,
+        "max_memory_allocated": alloc,
+        "drift": dataclasses.asdict(sample) if sample else None,
+        "store_seconds": gc.experience.seconds,
+        "warnings": [(e.source, e.message) for e in gc.events.warnings()],
+        "experience_failures": [repr(e) for _, e in gc.experience_failures],
+        "error": repr(h.error) if h.error else None}
+    log(f"[experience] job {spec.job_id}: " + json.dumps(rec, default=str))
+    return rec, h
+
+
+def _experience_gates(rec: dict, prior_peak: int = 0) -> list:
+    """The gates every experience run holds (``multi_job``'s memory gates
+    among them); the store keeps the largest peak measured so far
+    (``prior_peak`` before this run)."""
+    bad = []
+    j = rec["job"]
+    if rec["error"] or rec["experience_failures"]:
+        bad.append(f"{j}: error {rec['error']}, experience failures "
+                   f"{rec['experience_failures']}")
+    if rec["first_plan"]["compressed"] or rec["final_plan"]["compressed"] \
+            or any(e["compressed_swaps"] for e in rec["executors"]):
+        bad.append(f"{j}: a compressed event")
+    if rec["global_ledger_peak"] > rec["capacity"]:
+        bad.append(f"{j}: global ledger peak {rec['global_ledger_peak']} > "
+                   f"capacity {rec['capacity']}")
+    if rec["max_memory_allocated"] > (1 + ALLOC_LEDGER_TOL) * rec["capacity"]:
+        bad.append(f"{j}: max_memory_allocated "
+                   f"{rec['max_memory_allocated']} > 1.05 x capacity")
+    if rec["stored"] != [max(rec["measured_peak"], prior_peak),
+                         "experience"]:
+        bad.append(f"{j}: the store holds {rec['stored']}, measured "
+                   f"{rec['measured_peak']}")
+    return bad
+
+
+def _store_bytes(store) -> int:
+    return sum(os.path.getsize(os.path.join(store.dir, n))
+               for n in os.listdir(store.dir))
+
+
+def fit_latency_mlp(samples, util: float, device: str) -> tuple:
+    """LatencyMLP (hidden 32, seed 0) on ``device``, fitted on measured
+    operator samples (flops, bytes, the capture's utilisation, latency):
+    a MLP_FIT split drawn from a numpy seed; train and test R², the mean
+    squared error of log-latency before and after, the fit's seconds."""
+    s = [x for x in samples if x.latency_s > 0]
+    flops = np.array([x.flops for x in s])
+    bts = np.array([x.bytes_accessed for x in s])
+    lat = np.array([x.latency_s for x in s])
+    u = np.full(len(s), util, dtype=np.float32)
+    idx = np.random.default_rng(MLP_FIT["seed"]).permutation(len(s))
+    k = int(MLP_FIT["train_share"] * len(s))
+    tr, te = idx[:k], idx[k:]
+    mlp = LatencyMLP(seed=0, device=device)
+
+    def mse(rows) -> float:
+        x = torch.from_numpy(LatencyMLP.featurize(
+            flops[rows], bts[rows], u[rows])).to(device)
+        with torch.no_grad():
+            pred = mlp(x).cpu().numpy()
+        return float(np.mean((pred - np.log(np.maximum(lat[rows], 1e-9)))
+                             ** 2))
+
+    loss0 = mse(tr)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2_train = mlp.fit(flops[tr], bts[tr], u[tr], lat[tr],
+                       steps=MLP_FIT["steps"], lr=MLP_FIT["lr"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = {"samples": len(s), "train": len(tr), "test": len(te),
+           "loss_before": loss0, "loss_after": mse(tr),
+           "r2_train": r2_train,
+           "r2_test": mlp.r2(flops[te], bts[te], u[te], lat[te]),
+           "fit_s": fit_s, **MLP_FIT}
+    log("[experience] LatencyMLP on A's measured operators: "
+        + json.dumps(out))
+    return out, mlp
+
+
+def capture_with_mlp(spec, calib, mlp, measured_s: float,
+                     rec_a: dict) -> dict:
+    """A's capture seconds with the cost model's ``mlp`` attached (one
+    prediction, one synchronisation, per operator) against A's capture
+    under the controller without it (``rec_a``: the process's first
+    capture, so its seconds include what a first capture pays), and each
+    capture's predicted iteration time beside the measured one."""
+    step, params, opt, batch = resolve_workload(spec)
+    out = {"measured_iteration_s": measured_s,
+           "analytic_capture_s": rec_a["capture_s"],
+           "analytic_iteration_s": rec_a["iteration_s"]}
+    cm = CostModel(dataclasses.replace(calib))
+    cm.mlp = mlp
+    t0 = time.perf_counter()
+    seq, _ = capture_train_step(step, params, opt, batch,
+                                job_id=spec.job_id, cost_model=cm)
+    out["mlp_capture_s"] = time.perf_counter() - t0
+    out["mlp_iteration_s"] = seq.iteration_time
+    log("[experience] A's capture with and without the LatencyMLP: "
+        + json.dumps(out))
+    return out
+
+
+def experience_cold(link: dict, store_dir: str, device: str = "cuda",
+                    cfg=None) -> dict:
+    """The store's first run (module docstring): A then B, each under a
+    controller of its own over the empty store, planned from the cost
+    model's latencies of a measured calibration; then the LatencyMLP on
+    A's measured operators.  Runs in a fresh process."""
+    profile, specs = _experience_env(link, device, cfg)
+    # the card's rates, and the executor's per-operator floor as the
+    # model's overhead
+    calib = (dataclasses.replace(calibrate_cuda(),
+                                 overhead_s=executor_floor())
+             if device == "cuda" else DeviceCalibration())
+    measured_calib = dataclasses.asdict(calib)
+    out = {"calibration": measured_calib}
+    bad = []
+    gc = _experience_controller(profile, store_dir, device=device,
+                                cost_model=CostModel(
+                                    dataclasses.replace(calib)))
+    rec_a, h = _experience_job(gc, specs["A"], device)
+    out["digest_A"] = state_digest(h.args[:2])
+    util = gc.cost_model.utilization
+    samples = list(gc.telemetry.ops.get("A", ()))
+    last = max(x.iteration for x in samples)
+    measured_s = sum(x.latency_s for x in samples if x.iteration == last)
+    h.args = None
+    del h
+    out["A"] = rec_a
+    out["store_bytes_after_A"] = _store_bytes(gc.experience)
+    rec_a_stored_calib = dataclasses.asdict(
+        gc.experience.device_calibration())
+    # B's fingerprint is new to the store, but the card is not: with no
+    # explicit cost model its controller starts from the calibration A's
+    # run recalibrated and stored (the store's device record)
+    gc2 = _experience_controller(profile, store_dir, device=device)
+    b_calib = dataclasses.replace(gc2.cost_model.calib)
+    rec_b, h = _experience_job(gc2, specs["B"], device)
+    h.args = None
+    del h
+    out["B"] = rec_b
+    out["B_calibration"] = dataclasses.asdict(b_calib)
+    out["A_calibration_stored"] = rec_a_stored_calib
+    out["store_bytes"] = _store_bytes(gc2.experience)
+    out["stored_calibration"] = dataclasses.asdict(
+        gc2.experience.device_calibration())
+    out["mlp"], mlp = fit_latency_mlp(samples, util, device)
+    out["capture_mlp"] = capture_with_mlp(specs["A"], calib, mlp, measured_s,
+                                          rec_a)
+    # ---- gates ---------------------------------------------------------
+    for rec in (rec_a, rec_b):
+        bad += _experience_gates(rec)
+        if rec["predicted"][1] != "cost-model":
+            bad.append(f"{rec['job']}: cold prediction {rec['predicted']}")
+    if out["B_calibration"] != out["A_calibration_stored"]:
+        bad.append(f"B's cost model {out['B_calibration']} is not the "
+                   f"calibration A stored {out['A_calibration_stored']}")
+    d = rec_a["drift"]
+    if d is None or d["peak_drift"] <= DRIFT_THRESHOLD \
+            or "drift" not in {w[0] for w in rec_a["warnings"]}:
+        bad.append(f"A: drift sample {d}, warnings {rec_a['warnings']}")
+    m = out["mlp"]
+    if not m["loss_after"] < m["loss_before"] \
+            or not all(math.isfinite(m[k]) for k in ("r2_train", "r2_test")):
+        bad.append(f"LatencyMLP fit: {m}")
+    if bad:
+        raise AssertionError(f"experience_cold: {bad}")
+    out["handoff"] = {
+        "fingerprints": {j: out[j]["fingerprint"] for j in ("A", "B")},
+        "capacity": {j: out[j]["capacity"] for j in ("A", "B")},
+        "stored_peak_A": rec_a["stored"],
+        "peak_drift_A": d["peak_drift"], "digest_A": out["digest_A"]}
+    log("[experience] cold gates hold: " + json.dumps(out["handoff"]))
+    return out
+
+
+def experience_warm(link: dict, store_dir: str, cold: dict,
+                    device: str = "cuda", cfg=None) -> dict:
+    """The store's second run, in a new process (module docstring): a
+    controller over the same store with no explicit cost model captures,
+    predicts and runs A; the ``peak`` policy's split of A and B with and
+    without the store's priors.  ``cold`` is ``experience_cold``'s
+    handoff."""
+    profile, specs = _experience_env(link, device, cfg)
+    gc = _experience_controller(profile, store_dir, device=device)
+    store = gc.experience
+    stored = store.device_calibration()
+    # the warm boot, before the run recalibrates the model from the hub
+    warm_calib = dataclasses.replace(gc.cost_model.calib)
+    out = {"calibration": dataclasses.asdict(warm_calib),
+           "stored_calibration": dataclasses.asdict(stored)
+           if stored else None}
+    rec, h = _experience_job(gc, specs["A"], device,
+                             capacity=cold["capacity"]["A"])
+    out["digest_A"] = state_digest(h.args[:2])
+    seq_a = h.seq
+    h.args = None
+    del h
+    out["A"] = rec
+    fp = rec["fingerprint"]
+    out["drift_history"] = [dataclasses.asdict(r)
+                            for r in store.drift_history(fp)]
+    # the peak policy on the host: A and B at their no-free demands, then
+    # with the store's priors (the peaks their cold runs measured)
+    cap_b = gc.capture_spec(specs["B"])
+    seqs = {"A": seq_a, "B": cap_b.seq}
+    del cap_b
+    arb = BudgetArbiter(sum(cold["capacity"].values()), policy="peak")
+    for j, seq in seqs.items():
+        arb.register(j, demand_bytes=analyze(
+            [seq], free_at_last_use=False).peak_bytes)
+    split = {"no_priors": arb.split(list(seqs))}
+    for j, seq in seqs.items():
+        arb.set_prior(j, store.prior(seq))
+    split["priors"] = arb.split(list(seqs))
+    split["demands"] = dict(arb.demands)
+    split["prior_peaks"] = {j: p.peak_bytes for j, p in arb.priors.items()}
+    split["cold_capacity"] = cold["capacity"]
+    out["peak_split"] = split
+    out["bandwidth"] = {"store": store.bandwidth(),
+                        "link": link["host_link_bw"]}
+    out["store_bytes"] = _store_bytes(store)
+    log("[experience] peak policy: " + json.dumps(split))
+    log("[experience] store bandwidth " + json.dumps(out["bandwidth"]))
+    # ---- gates ---------------------------------------------------------
+    bad = _experience_gates(rec, cold["stored_peak_A"][0])
+    if fp != cold["fingerprints"]["A"]:
+        bad.append(f"A's fingerprint {fp} != cold {cold['fingerprints']}")
+    if rec["predicted"] != cold["stored_peak_A"]:
+        bad.append(f"warm prediction {rec['predicted']} != the cold "
+                   f"measured peak {cold['stored_peak_A']}")
+    if stored is None or warm_calib != stored:
+        bad.append(f"cost model {out['calibration']} != stored "
+                   f"{out['stored_calibration']}")
+    wb = rec["first_plan"]["warm_boot"]
+    if not wb or wb[-1]["verified_peak_bytes"] > rec["capacity"]:
+        bad.append(f"A's first plan carries no warm boot within its "
+                   f"capacity: {wb}")
+    if out["digest_A"] != cold["digest_A"]:
+        bad.append("A's final state differs from the cold run's")
+    d = rec["drift"]
+    if d is None or not d["peak_drift"] < cold["peak_drift_A"]:
+        bad.append(f"warm drift {d} not below cold {cold['peak_drift_A']}")
+    if len(out["drift_history"]) < 2:
+        bad.append(f"drift history {out['drift_history']}")
+    if bad:
+        raise AssertionError(f"experience_warm: {bad}")
+    log("[experience] warm gates hold: fingerprint, prediction "
+        f"{rec['predicted']}, calibration, warm boot {wb[-1]}, digest, "
+        f"drift {d['peak_drift']} < {cold['peak_drift_A']}")
+    return out
+
+
 @contextlib.contextmanager
 def counting_swaps(counts: collections.Counter):
     """While active, count the executor's host copies (``out_``) and host
@@ -2909,6 +3369,39 @@ def main() -> int:
     mj = timed("multi_job", lambda: in_fresh_process(
         "multi_job", link, timeout=900))
 
+    # the experience plane: the store's first run, then a warm run in a
+    # second process from the same store, outside the checkout
+    store_dir = tempfile.mkdtemp(prefix="tensile-experience-")
+    try:
+        t0 = time.perf_counter()
+        cold = in_fresh_process("experience_cold", link, store_dir,
+                                timeout=900)
+        cold_s = time.perf_counter() - t0
+        log(f"[phase] experience_cold {cold_s:.2f} s")
+        warm = in_fresh_process("experience_warm", link, store_dir,
+                                cold["handoff"], timeout=900)
+        warm_s = time.perf_counter() - t0 - cold_s
+        log(f"[phase] experience_warm {warm_s:.2f} s")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    log("[experience] " + json.dumps({
+        "command_s": {"cold": cold_s, "warm": warm_s},
+        "first_plan_s": {"cold_A": cold["A"]["first_plan_s"],
+                         "cold_B": cold["B"]["first_plan_s"],
+                         "warm_A": warm["A"]["first_plan_s"]},
+        "predicted": {"cold_A": cold["A"]["predicted"],
+                      "cold_B": cold["B"]["predicted"],
+                      "warm_A": warm["A"]["predicted"]},
+        "measured_peak": {"cold_A": cold["A"]["measured_peak"],
+                          "cold_B": cold["B"]["measured_peak"],
+                          "warm_A": warm["A"]["measured_peak"]},
+        "peak_drift": {"cold_A": cold["A"]["drift"]["peak_drift"],
+                       "cold_B": cold["B"]["drift"]["peak_drift"],
+                       "warm_A": warm["A"]["drift"]["peak_drift"]},
+        "peak_split": warm["peak_split"], "bandwidth": warm["bandwidth"],
+        "mlp": cold["mlp"], "capture_mlp": cold["capture_mlp"],
+        "store_bytes": warm["store_bytes"]}))
+
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         tl = kv_times["tinyllama"]
@@ -2998,7 +3491,9 @@ def main() -> int:
     return 0
 
 
-FRESH_PHASES = {"multi_job": multi_job,
+FRESH_PHASES = {"experience_cold": experience_cold,
+                "experience_warm": experience_warm,
+                "multi_job": multi_job,
                 "profile_restore": profile_restore,
                 "quant_device_ms": quant_device_ms,
                 "ssd_device_ms": ssd_device_ms}

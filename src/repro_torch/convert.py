@@ -4,7 +4,8 @@
 (``jax.tree.map(np.asarray, params)``, with ``blocks`` stacked on axis 0)
 and returns the port's module holding the same values, so both packages
 compute the same function.  ``adam_state_from_jax`` does the same for the
-reference's ``AdamState``.  ``tree_from_numpy`` moves any pytree of numpy
+reference's ``AdamState``, and ``latency_mlp_from_jax`` for the weights of
+the reference's cold-start ``LatencyMLP``.  ``tree_from_numpy`` moves any pytree of numpy
 arrays (the MLP workload's weights and data) onto a device.  Nothing here
 imports JAX: the caller converts.
 """
@@ -15,6 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .core.cost_model import LatencyMLP
 from .device import resolve_device
 from .models.transformer import TransformerLM
 from .optim.adam import AdamState
@@ -87,3 +89,26 @@ def adam_state_from_jax(np_state, model: TransformerLM) -> AdamState:
                         device=device)
     return AdamState(step=step, mu=tree(np_state.mu), nu=tree(np_state.nu),
                      master=master)
+
+
+LATENCY_MLP_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def latency_mlp_from_jax(params: Dict[str, Any], device=None) -> LatencyMLP:
+    """A :class:`LatencyMLP` on ``device`` (default ``cuda``) holding the
+    reference's ``LatencyMLP.params`` given as numpy (``{w1, b1, w2, b2,
+    w3, b3}``); its hidden width is ``w1``'s.  Raises if a key is missing
+    or extra, or a shape differs."""
+    if set(params) != set(LATENCY_MLP_KEYS):
+        raise KeyError(f"LatencyMLP keys differ: "
+                       f"{sorted(set(params) ^ set(LATENCY_MLP_KEYS))}")
+    mlp = LatencyMLP(hidden=int(np.shape(params["w1"])[1]), device=device)
+    with torch.no_grad():
+        for k in LATENCY_MLP_KEYS:
+            dst = getattr(mlp, k)
+            src = _tensor(params[k]).to(dtype=dst.dtype)
+            if src.shape != dst.shape:
+                raise ValueError(f"{k}: shape {tuple(src.shape)} != "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+    return mlp

@@ -11,6 +11,12 @@ al., 2021) for captured aten graphs on a CUDA card.
                                      the serving session run against
     TelemetryHub                  -- one sink for op/transfer/stall/residency
                                      records from both runtimes
+    ExperienceStore / fingerprint -- the experience plane: persistent
+                                     cross-run store (distilled telemetry,
+                                     recalibrated calibration, verified plan
+                                     cache per job fingerprint) so recurring
+                                     jobs warm-boot instead of cold-start
+    LatencyMLP                    -- the cold-start latency predictor
     simulate / evaluate           -- discrete-event metrics (MSR/EOR/CBR)
     FxExecutor                    -- interpreting executor with real swaps to
                                      pinned host memory, plan hot-swap at
@@ -28,12 +34,15 @@ from .access import (AccessSequence, AccessType, Operator, Phase, TensorKind,
                      TensorSpec, format_bytes)
 from .baselines import capuchin_plan, vanilla_plan, vdnn_conv_plan
 from .cost_model import (CalibrationReport, CostModel, DeviceCalibration,
-                         EWMATracker, calibrate_cuda)
+                         EWMATracker, LatencyMLP, calibrate_cuda)
 from .engine import (DeviceLedger, DmaChannel, EngineTrace, JobContext,
                      JobLedgerView, MemoryEngine, SafePoint, TraceRecord,
                      find_safe_points)
 from .executor import (AsyncSwapExecutor, ExecutionStats, FxExecutor,
-                       reference_outputs)
+                       executor_floor, reference_outputs)
+from .experience import (CalibrationRecord, ExperienceEntry, ExperienceStore,
+                         PlanRecord, TelemetrySummary, budget_bucket,
+                         device_identity, fingerprint, sequence_signature)
 from .graph_capture import CaptureSpec, capture, capture_train_step
 from .multiplexer import (ARBITER_MODES, ARBITER_POLICIES, BudgetArbiter,
                           CapturedJob, GlobalController, JobFailedError,

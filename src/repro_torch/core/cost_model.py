@@ -1,20 +1,27 @@
-"""Operator latency estimation (paper §IV-C) for captured aten graphs.
+"""Operator latency estimation (paper §IV-C) for captured aten graphs, and
+the cold-start predictor.
 
-Two layers, used in this order:
+Three layers, used in this order:
   1. **Analytic model** -- per-node FLOPs / bytes from the aten node's
      shapes, latency = overhead + max(flops/peak_flops, bytes/mem_bw) scaled
      by a utilization factor.  Available before anything has ever run.
-  2. **EWMA correction** -- at runtime, measured latencies are folded in with
+  2. **MLP predictor** -- ``LatencyMLP``, the paper's light 3-layer MLP
+     mapping <log flops, log bytes, device utilization> -> log latency,
+     trained on measured samples; once attached (``CostModel.mlp``) its
+     prediction is blended 50/50 with the analytic one.
+  3. **EWMA correction** -- at runtime, measured latencies are folded in with
      an exponentially weighted moving average (paper §IV-E).
 
 The JAX package's ``core/cost_model.py`` prices jaxpr equations; here
 ``node_cost`` prices ``torch.fx`` nodes of aten ops with the same rules
 (matrix products 2*M*N*K, the convolution rule, reductions by input size,
 the same elementwise table keyed by the aten op's base name).
-``offload_quant_latency``/``offload_quant_bandwidth`` and
-``recalibrate``/``calibration_report`` are copies.  The reference's
-``LatencyMLP`` (the cold-start predictor of the multi-job runtime) is not
-ported yet, and nothing on the single-job path trains it.
+``offload_quant_latency``/``offload_quant_bandwidth``,
+``recalibrate``/``calibration_report`` and the warm boot from an
+``ExperienceStore`` are copies; ``LatencyMLP`` is an ``nn.Module`` with the
+reference's network, features and training rule (Adam, weight decay 0,
+through ``optim/adam.py``), initialised from a seeded ``torch.Generator``
+(``convert.latency_mlp_from_jax`` loads the reference's weights).
 """
 from __future__ import annotations
 
@@ -23,7 +30,10 @@ import math
 import statistics
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ..device import resolve_device
 
 # row-block width of the quantize-on-offload kernel
 # (kernels/offload_quant.BLOCK; duplicated so this module stays kernel-free)
@@ -110,8 +120,19 @@ def _clamped(estimate: float, current: float, limit: float = 16.0) -> float:
 
 
 class CostModel:
-    def __init__(self, calib: Optional[DeviceCalibration] = None):
+    def __init__(self, calib: Optional[DeviceCalibration] = None,
+                 experience=None):
+        # warm boot (experience plane): with no explicit calibration, an
+        # attached ExperienceStore supplies the constants persisted by a
+        # prior run's recalibration.  An explicit `calib` always wins.
+        if calib is None and experience is not None:
+            try:
+                calib = experience.device_calibration()
+            except Exception:   # noqa: BLE001 - corrupt store: cold boot
+                calib = None
         self.calib = calib or DeviceCalibration()
+        self.experience = experience
+        self.mlp: Optional["LatencyMLP"] = None
         self.utilization: float = 0.0  # 0..1, "GPU usage" analogue
         # recalibration cursor per job: only hub samples newer than this
         # are folded in on the next recalibrate() call
@@ -165,11 +186,19 @@ class CostModel:
     # ------------------------------------------------------------------
     def latency(self, flops: float, bytes_accessed: float,
                 prim_name: str = "") -> float:
-        """Roofline latency under current utilization."""
+        """Roofline latency under current utilization; with a trained
+        ``mlp`` attached, the mean of the two (the cold-start path, paper
+        §IV-C)."""
         c = self.calib
         slowdown = 1.0 + self.utilization  # contended device runs slower
-        return float(c.overhead_s + slowdown * max(flops / c.flops,
-                                                   bytes_accessed / c.mem_bw))
+        base = c.overhead_s + slowdown * max(flops / c.flops,
+                                             bytes_accessed / c.mem_bw)
+        if self.mlp is not None:
+            pred = self.mlp.predict_one(flops, bytes_accessed,
+                                        self.utilization)
+            if pred > 0:
+                return float(0.5 * base + 0.5 * pred)
+        return float(base)
 
     # ------------------------------------------------------------------
     # Online recalibration from measured telemetry
@@ -222,6 +251,94 @@ class CostModel:
         overall = (sum(sum(v) for v in errs.values()) / n) if n else 0.0
         return CalibrationReport(overall=overall, per_primitive=per_prim,
                                  samples=n)
+
+
+# ======================================================================
+# The paper's 3-layer MLP latency predictor
+# ======================================================================
+def _r2(pred: np.ndarray, y: np.ndarray) -> float:
+    ss_res = float(np.sum((pred - y) ** 2))
+    ss_tot = float(np.sum((y - y.mean()) ** 2)) or 1e-12
+    return 1.0 - ss_res / ss_tot
+
+
+class LatencyMLP(torch.nn.Module):
+    """Predicts log-latency from <log flops, log bytes, utilization>.
+
+    The paper feeds raw input dims and op params; flops/bytes are a
+    sufficient statistic of those for roofline-dominated ops and keep the
+    model op-agnostic.  3 -> hidden -> hidden -> 1 with tanh, fp32 on
+    ``device`` (default ``cuda``); the initial weights are drawn on the CPU
+    from a ``torch.Generator`` seeded ``seed`` (the reference's scales), so
+    they do not depend on the device.
+    """
+
+    def __init__(self, hidden: int = 32, seed: int = 0, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+
+        def normal(shape, scale: float) -> torch.nn.Parameter:
+            w = torch.randn(shape, generator=gen) * scale
+            return torch.nn.Parameter(w.to(self.device))
+
+        def zeros(n: int) -> torch.nn.Parameter:
+            return torch.nn.Parameter(torch.zeros(n, device=self.device))
+
+        self.w1 = normal((3, hidden), 1 / math.sqrt(3))
+        self.b1 = zeros(hidden)
+        self.w2 = normal((hidden, hidden), 1 / math.sqrt(hidden))
+        self.b2 = zeros(hidden)
+        self.w3 = normal((hidden, 1), 1 / math.sqrt(hidden))
+        self.b3 = zeros(1)
+
+    @staticmethod
+    def featurize(flops: np.ndarray, bytes_: np.ndarray,
+                  util: np.ndarray) -> np.ndarray:
+        return np.stack([np.log1p(flops) / 30.0, np.log1p(bytes_) / 30.0,
+                         util], axis=-1).astype(np.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.tanh(x @ self.w1 + self.b1)
+        h = torch.tanh(h @ self.w2 + self.b2)
+        return (h @ self.w3 + self.b3)[..., 0]
+
+    def _features(self, flops, bytes_, util) -> torch.Tensor:
+        return torch.from_numpy(self.featurize(
+            np.asarray(flops), np.asarray(bytes_),
+            np.asarray(util))).to(self.device)
+
+    def fit(self, flops: np.ndarray, bytes_: np.ndarray, util: np.ndarray,
+            latency_s: np.ndarray, steps: int = 2000,
+            lr: float = 3e-3) -> float:
+        """Train on measured samples (full batch, AdamW with weight decay
+        0); returns training R² on log-latency."""
+        from ..optim.adam import adamw_init, adamw_update
+        x = self._features(flops, bytes_, util)
+        y = torch.from_numpy(np.log(np.maximum(
+            np.asarray(latency_s), 1e-9)).astype(np.float32)).to(self.device)
+        params = dict(self.named_parameters())
+        state = adamw_init(params)
+        for _ in range(steps):
+            with torch.enable_grad():
+                loss = torch.mean((self(x) - y) ** 2)
+                grads = torch.autograd.grad(loss, list(params.values()))
+            _, state = adamw_update(params, dict(zip(params, grads)), state,
+                                    lr=lr, weight_decay=0.0)
+        with torch.no_grad():
+            pred = self(x).cpu().numpy()
+        return _r2(pred, y.cpu().numpy())
+
+    @torch.no_grad()
+    def predict_one(self, flops: float, bytes_: float, util: float) -> float:
+        x = self._features([flops], [bytes_], [util])
+        return float(torch.exp(self(x))[0])
+
+    @torch.no_grad()
+    def r2(self, flops, bytes_, util, latency_s) -> float:
+        pred = self(self._features(flops, bytes_, util)).cpu().numpy()
+        y = np.log(np.maximum(np.asarray(latency_s), 1e-9))
+        return _r2(pred, y)
 
 
 class EWMATracker:

@@ -52,12 +52,25 @@ splices it in right after the plan events of the first eligible operator,
 when none of its prefetches is on the wire (queued prefetches not yet
 issued to the copy stream are cancelled, ``cancel_unstarted``, and their
 consumers swap in passively) and its own swap-outs have landed.
+
+Budget guard (``budget_bytes``: the job's slice, which the multi-job
+controller passes when built with ``hold_slices=True``): the planner can
+return a plan above the slice, a plan is certified by the planner's model,
+whose clock is the operators' estimated latencies, and a first iteration
+starts with every input on the device where the plan's steady state parks
+some.  Before any booking that would take the job over its slice, the
+executor waits for its swap-outs already on the wire to land, then swaps
+out resident storages itself, the one read again last first; their
+readers swap them in passively.  Swaps copy, so the values never change;
+without a budget nothing of this runs.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import operator
+import statistics
 import threading
 import time as _time
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
@@ -66,13 +79,15 @@ import torch
 import torch.utils._pytree as pytree
 from torch.fx.node import map_arg
 
+from ..device import resolve_device
 from ..kernels.offload_quant import (dequantize_blocked, packed_bytes,
                                      packed_views, quantize_blocked)
 from .access import AccessSequence
 from .engine import (INPUT_AWAIT_PREFETCH, INPUT_PASSIVE_SWAP_IN,
                      INPUT_RESIDENT, DeviceLedger, DmaChannel, MemoryEngine,
                      ResidencyView)
-from .graph_capture import graph_layout
+from .cost_model import CostModel
+from .graph_capture import capture, graph_layout
 from .plan import EventType, SchedulingPlan
 from .telemetry import TelemetryHub
 
@@ -96,6 +111,12 @@ class ExecutionStats:
     # measured per-job residency timeline of THIS iteration, (t, bytes)
     # in hub time -- filled from the TelemetryHub when one is attached
     residency_timeline: Optional[List[tuple]] = None
+    # budget guard: times the run waited for its swap-outs on the wire so
+    # that a booking kept within ``budget_bytes``, the seconds waited, and
+    # the storages it swapped out itself (counted in swap_out_count too)
+    budget_waits: int = 0
+    budget_wait_s: float = 0.0
+    budget_evictions: int = 0
 
 
 # A compressed swap-in whose packed buffer holds at most this many bytes
@@ -282,7 +303,8 @@ class FxExecutor:
                  host_resident_inputs: Optional[Set[str]] = None,
                  engine: Optional[MemoryEngine] = None,
                  telemetry: Optional[TelemetryHub] = None,
-                 copy_stream: Optional["torch.cuda.Stream"] = None):
+                 copy_stream: Optional["torch.cuda.Stream"] = None,
+                 budget_bytes: Optional[int] = None):
         self.gm = graph_module
         self.layout = graph_layout(graph_module)
         self.seq = seq
@@ -301,6 +323,15 @@ class FxExecutor:
         self.async_swap = async_swap
         self.async_exec: Optional[AsyncSwapExecutor] = None
         self.copy_stream = copy_stream
+        # the job's slice of the device: before a booking would take the
+        # job over it, the swap-outs already on the wire are waited for,
+        # then resident storages swapped out (``_hold_budget``); None (the
+        # default) never waits and never swaps out what the plan keeps
+        self.budget_bytes = budget_bytes
+        # storages the guard swapped out: their host copies go stale when
+        # the value is written again or dies (``_forget_evicted``)
+        self._evicted: Set[str] = set()
+        self._reads: Optional[Dict[str, List[int]]] = None
         self.measure_latency = measure_latency
         # storages whose *input* value starts on host (previous iteration's
         # cross-iteration swap-out; paper Fig. 1(c) steady state)
@@ -566,7 +597,8 @@ class FxExecutor:
             dequantize_blocked(q, s, meta, out=out)
         return dst if out is dst else dst.copy_(out)
 
-    def _swap_out(self, tid: str, compressed: bool = False) -> None:
+    def _swap_out(self, tid: str, compressed: bool = False,
+                  sync: bool = False) -> None:
         st = self._st(tid)
         if st not in self.device or st in self._pending_out:
             return
@@ -585,7 +617,7 @@ class FxExecutor:
                     self.ctx.job_id, st, "out", self.ctx.size_of(st),
                     _time.perf_counter() - t0, compressed=compressed, t=ts)
 
-        if self.async_exec is not None:
+        if self.async_exec is not None and not sync:
             if self.async_exec.stream is not None:
                 # read on the copy stream: the allocator must not hand the
                 # block out again before that read, whenever it is freed
@@ -626,6 +658,93 @@ class FxExecutor:
                 del self._pending_out[st]
                 self.async_exec.inflight.pop(t.key, None)
                 self._retire_out(st, compressed, val)
+
+    def _hold_budget(self, incoming: int, keep=()) -> None:
+        """Budget guard: keep the job's booked bytes plus ``incoming``
+        within ``budget_bytes``.  First wait for the swap-outs already
+        issued to land and retire them: the plan's model frees those copies
+        by its own clock, and a copy slower than that clock (operator
+        latencies are estimates) would otherwise hold a tensor's device
+        copy while the next allocation lands.  If that is not enough (a
+        plan whose own peak exceeds the slice, or a prefetch due before its
+        bytes are), swap out resident storages, the one read again last
+        first, never one of ``keep`` or one with a transfer under way;
+        their next readers swap them in passively.  Values never change:
+        a swap copies."""
+        if self.budget_bytes is None or not self._over(incoming):
+            return
+        issued = [t for t, _, _ in self._pending_out.values() if t.issued]
+        if issued:
+            t0 = _time.perf_counter()
+            for t in issued:
+                if t.event is not None:
+                    t.event.synchronize()
+            self._poll_swap_outs()
+            stall = _time.perf_counter() - t0
+            self.stats.budget_waits += 1
+            self.stats.budget_wait_s += stall
+            self.stats.stall_time_s += stall
+            if self.telemetry is not None:
+                self.telemetry.record_stall(self.ctx.job_id, self._cur_idx,
+                                            stall, "budget")
+        if self._over(incoming):
+            self._evict(incoming, set(keep))
+
+    def _over(self, incoming: int) -> bool:
+        return (self.accountant.job_bytes(self.ctx.job_id) + incoming
+                > self.budget_bytes)
+
+    def _next_read(self, st: str) -> int:
+        """The next operator after the current one that reads ``st`` (one
+        past the last operator when none does)."""
+        if self._reads is None:
+            self._reads = {}
+            for i, op in enumerate(self.seq.operators):
+                for tid in op.inputs:
+                    self._reads.setdefault(self._st(tid), []).append(i)
+        reads = self._reads.get(st, ())
+        k = bisect.bisect_right(reads, self._cur_idx)
+        return reads[k] if k < len(reads) else len(self.seq.operators)
+
+    def _evict(self, incoming: int, keep: Set[str]) -> None:
+        """Swap out resident storages, the one read again last first,
+        until ``incoming`` more bytes fit the budget or none is left."""
+        busy = set(keep) | set(self._pending_out)
+        if self.async_exec is not None:
+            busy |= {k[3:] for k in self.async_exec.inflight
+                     if k.startswith("in:")}
+        for st in sorted((st for st in self.device if st not in busy),
+                         key=lambda st: (-self._next_read(st), st)):
+            if not self._over(incoming):
+                return
+            self._swap_out(st, sync=True)
+            self._evicted.add(st)
+            self.stats.budget_evictions += 1
+
+    def _forget_evicted(self, st: str) -> None:
+        """A storage the guard swapped out is written again, or dies: its
+        host copy is stale, and must be neither fetched nor carried into
+        the next iteration.  (A planned release keeps it: the plan may
+        fetch the value back from it.)"""
+        if st in self._evicted and st not in self._pending_out:
+            self._evicted.discard(st)
+            self._hold(self.host.pop(st, None))
+            self.ctx.host.discard(st)
+            self.ctx.host_compressed.discard(st)
+
+    def _incoming_bytes(self, idx: int) -> int:
+        """Bytes operator ``idx`` books when it runs: its results, and
+        its inputs not on the device (swapped in or recomputed)."""
+        op = self.seq.operators[idx]
+        sts = {self._st(t) for t in op.inputs + op.outputs}
+        return sum(self.ctx.size_of(st) for st in sts
+                   if st not in self.device)
+
+    def _queued_in_bytes(self) -> int:
+        """Bytes the queued (not yet issued) prefetches book at issue."""
+        return sum(self.ctx.size_of(t.key[3:])
+                   for t in self.async_exec.queue
+                   if t.key.startswith("in:") and t.key[3:] not in self.device)
 
     def _swap_in(self, st: str, passive: bool) -> bool:
         """Prefetch from host; returns False when there is nothing to fetch
@@ -762,6 +881,10 @@ class FxExecutor:
                 if st not in self.host:
                     self._host_put(st, self._host_input(val))
             else:
+                if self.budget_bytes is not None:
+                    # a first iteration starts with every input on the
+                    # device; the plan's steady state may park some
+                    self._hold_budget(self.ctx.size_of(st), {st})
                 self._put_device(tid, val if val.device == self.dev
                                  else val.to(self.dev))
         # drop this frame's references: the stores now hold the inputs
@@ -786,6 +909,9 @@ class FxExecutor:
                 self._poll_swap_outs()
             if self._held:
                 self._release_held()
+            if self.budget_bytes is not None:
+                self._hold_budget(self._incoming_bytes(idx), {
+                    self._st(t) for t in op.inputs + op.outputs})
             t0 = _time.perf_counter()
             for tid in op.inputs:
                 self._ensure_input(tid)
@@ -804,6 +930,8 @@ class FxExecutor:
                         self.ctx.job_id, idx, t2 - t1, prim=op.name,
                         flops=op.flops, bytes_accessed=op.bytes_accessed)
             for k, o in lay.results[node]:
+                if self._evicted:
+                    self._forget_evicted(self._st(lay.tid[o]))
                 self._put_device(lay.tid[o], outs if k is None else outs[k])
             del outs
 
@@ -812,6 +940,10 @@ class FxExecutor:
                 if self.ctx.should_auto_release(tid, idx):
                     self.engine.record("release", self.ctx, self._st(tid))
                     self._drop_storage(self._st(tid))
+                    if self._evicted and self._next_read(
+                            self._st(tid)) >= len(lay.ops):
+                        # dead for the rest of the iteration
+                        self._forget_evicted(self._st(tid))
 
             # plan events triggered by this op (engine skip rules)
             for ev in self.ctx.events_triggered_by(idx):
@@ -821,17 +953,28 @@ class FxExecutor:
                 if ev.event_type is EventType.SWAP_OUT:
                     self._swap_out(ev.tensor_id, compressed=ev.compressed)
                 elif ev.event_type is EventType.SWAP_IN:
+                    if self.budget_bytes is not None \
+                            and self.async_exec is None:
+                        # a synchronous prefetch books at once
+                        self._hold_budget(self.ctx.size_of(st), {st})
                     self._swap_in(st, passive=False)
                 elif ev.event_type is EventType.RELEASE:
                     self.engine.record("release", self.ctx, st)
                     self._drop_storage(st)
                 elif ev.event_type is EventType.RECOMPUTE:
+                    if self.budget_bytes is not None:
+                        self._hold_budget(self.ctx.size_of(st), {
+                            self._st(t) for t in
+                            self.seq.operators[self.producer[
+                                ev.tensor_id]].inputs})
                     self.engine.record("recompute", self.ctx, st)
                     self._recompute(ev.tensor_id)
             # preemptive arbitration: splice a pending plan in at a safe
             # point (after this op's events, before its transfers issue)
             self._maybe_hot_swap(idx)
             if self.async_exec is not None:
+                if self.budget_bytes is not None and self.async_exec.queue:
+                    self._hold_budget(self._queued_in_bytes())
                 self.async_exec.flush()
             if throttle is not None:
                 throttle.append(self._compute.record_event())
@@ -890,6 +1033,36 @@ class FxExecutor:
     def close(self) -> None:
         if self.async_exec is not None:
             self.async_exec.drain()
+
+
+# executor_floor: the chain of small elementwise operators it times, and
+# the runs of it (the last one is read)
+FLOOR_OPS = 64
+FLOOR_REPS = 3
+
+
+def executor_floor(device=None) -> float:
+    """The seconds ``FxExecutor`` spends on one small operator when it
+    times each (under telemetry: the aten node interpreted from Python,
+    then the compute stream synchronised): the median over a chain of
+    FLOOR_OPS small products and sums on ``device`` (default ``cuda``), the
+    last of FLOOR_REPS runs.  On a card this host cost, not the device's
+    rates, bounds most of a train step's thousands of small operators; a
+    caller that wants the analytic model to price it puts it into
+    ``DeviceCalibration.overhead_s``."""
+    dev = resolve_device(device)
+
+    def chain(x):
+        for _ in range(FLOOR_OPS // 2):
+            x = x * 0.5 + 1.0
+        return x
+
+    x = torch.zeros(1024, device=dev)
+    seq, gm = capture(chain, x, cost_model=CostModel())
+    for _ in range(FLOOR_REPS):
+        ex = FxExecutor(gm, seq, None, measure_latency=True)
+        ex.run(x)
+    return statistics.median(ex.stats.op_latencies)
 
 
 _OUT_FORMS: Dict[Any, Any] = {}

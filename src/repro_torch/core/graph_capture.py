@@ -222,11 +222,17 @@ def trace(fn: Callable, *args: Any) -> torch.fx.GraphModule:
 def capture(fn: Callable, *args: Any, job_id: str = "job0",
             spec: Optional[CaptureSpec] = None,
             cost_model: Optional[CostModel] = None,
+            experience=None,
             ) -> Tuple[AccessSequence, torch.fx.GraphModule]:
     """Trace ``fn(*args)`` and build its AccessSequence.  ``args`` are
     pytrees of tensors (on any device; only their shapes, dtypes and
-    devices are read).  Returns ``(seq, graph_module)``."""
-    cost_model = cost_model or CostModel()
+    devices are read).  Returns ``(seq, graph_module)``.
+
+    ``experience`` (an ExperienceStore) warm-boots the default cost model:
+    capture-time latency estimates then come from the calibration a prior
+    run measured and persisted, not the data-sheet constants.  Ignored
+    when an explicit ``cost_model`` is passed."""
+    cost_model = cost_model or CostModel(experience=experience)
     gm = trace(fn, *args)
     lay = graph_layout(gm)
     # leaves per top-level argument and result (make_fx flattens both;
@@ -326,7 +332,8 @@ def capture(fn: Callable, *args: Any, job_id: str = "job0",
 
 def capture_train_step(fn: Callable, params: Any, opt_state: Any, batch: Any,
                        job_id: str = "job0",
-                       cost_model: Optional[CostModel] = None):
+                       cost_model: Optional[CostModel] = None,
+                       experience=None):
     """Capture a canonical ``train_step(params, opt_state, batch) ->
     (new_params, new_opt_state, metrics)``: params/opt-state kinds + the
     across-iteration aliasing the paper's Opt-phase scheduling needs."""
@@ -335,4 +342,4 @@ def capture_train_step(fn: Callable, params: Any, opt_state: Any, batch: Any,
         out_kinds=[TensorKind.PARAM, TensorKind.OPT_STATE, TensorKind.OUTPUT],
         alias_pairs=[(0, 0), (1, 1)])
     return capture(fn, params, opt_state, batch, job_id=job_id, spec=spec,
-                   cost_model=cost_model)
+                   cost_model=cost_model, experience=experience)

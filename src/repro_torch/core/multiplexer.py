@@ -34,9 +34,22 @@ orders them as the channel books them (paper Fig. 4).  A serving job
 shared ledger and channel under its slice, with the batched transfer path
 (one KV gather and one scatter launch per cohort).
 
-Not ported yet, and refused when asked for: the experience store
-(``experience``/``experience_dir`` take only None; ROADMAP queue 1, the
-next item) and the drift monitor (``drift`` takes only None; item 10).
+The experience plane (``experience``/``experience_dir``, an
+``ExperienceStore``, ``core/experience.py``) warm-boots a recurring job: the
+cost model starts from the persisted calibration, ``predict_peak`` returns
+the peak a prior run measured, the pipeline adopts a stored plan once it
+re-verifies against the job's budget, and the arbiter's ``peak`` and
+``eor-learned`` policies read the stored telemetry as priors; each train
+job's distilled run is flushed back at its exit.  An attached
+``DriftMonitor`` (``obs/drift.py``) compares the peak predicted at
+admission with the measured one at exit.  A failing store never takes a
+job down: its errors go to ``experience_failures`` and WARN events.
+
+With ``hold_slices=True`` (off by default, as in the reference) each
+train job's executor gets the job's slice as its budget
+(``FxExecutor(budget_bytes=...)``): where the planner returns a plan over
+the slice, or a plan's model misjudges the card, the executor waits for
+its swap-outs or swaps out more itself rather than exceed the slice.
 """
 from __future__ import annotations
 
@@ -58,6 +71,7 @@ from .cost_model import CostModel
 from .engine import (DeviceLedger, DmaChannel, JobLedgerView, MemoryEngine,
                      find_safe_points)
 from .executor import FxExecutor
+from .experience import ExperienceStore, device_identity
 from .graph_capture import capture_train_step
 from .peak_analysis import analyze
 from .plan import MachineProfile, SchedulingPlan
@@ -103,8 +117,11 @@ class JobHandle:
     # the arbiter-assigned slice of the device budget, as a live view over
     # the shared DeviceLedger (None until the first split)
     ledger_view: Optional[JobLedgerView] = None
-    # structural fingerprint (the spec's; no experience store computes one)
+    # structural fingerprint (the experience store's, else the spec's)
     fingerprint: Optional[str] = None
+    # the admission-time peak prediction, pinned at submit when a drift
+    # monitor is attached (compared with the measured peak at exit)
+    predicted_peak: Optional[int] = None
     # the executor running (or last to run) this job's iteration -- the
     # preemptive arbiter hot-swaps plans into it at a safe point
     executor: Optional[Any] = None
@@ -330,26 +347,38 @@ class GlobalController:
                  arbiter_mode: Optional[str] = None,
                  telemetry: Optional[TelemetryHub] = None,
                  safe_point_source: str = "measured",
-                 experience=None, experience_dir: Optional[str] = None,
+                 experience: Optional[ExperienceStore] = None,
+                 experience_dir: Optional[str] = None,
                  events: Optional[EventLog] = None, drift=None,
-                 device=None):
-        if experience is not None or experience_dir is not None:
-            raise NotImplementedError(
-                "the experience store is not ported yet; pass "
-                "experience=None and experience_dir=None")
-        if drift is not None:
-            raise NotImplementedError(
-                "the drift monitor is not ported yet; pass drift=None")
+                 device=None, hold_slices: bool = False):
         # every job's tensors live here; a missing card raises
         self.device = resolve_device(device)
+        # give each train job's executor its slice as its budget (the
+        # executor's budget guard); off, executors run their plans as
+        # planned, as the reference's do
+        self.hold_slices = hold_slices
         self.profile = profile or MachineProfile()
-        # failure paths that must never take a job down (survivor and
-        # preempt replans) emit WARN events here beside their lists
+        # failure paths that must never take a job down (experience
+        # flushes, survivor and preempt replans) emit WARN events here
+        # beside their lists
         self.events = events if events is not None else EventLog()
+        # optional sim-vs-measured drift monitor: submit pins the predicted
+        # peak, _on_job_exit feeds it the measured one
+        self.drift = drift
         # one measured-telemetry hub per device: every executor produces
         # into it; safe points, drift replans and the eor-learned policy
         # read from it
         self.telemetry = telemetry or TelemetryHub(clock="real")
+        # the experience plane: an attached store warm-boots the cost
+        # model's calibration, the pipeline's plan cache, the planner's DMA
+        # bandwidth and the arbiter's priors; distilled experience flushes
+        # back on job exit
+        if experience is None and experience_dir is not None:
+            experience = ExperienceStore(
+                experience_dir, device_id=device_identity(self.profile))
+        self.experience = experience
+        # (job_id, error) of experience lookups and flushes that failed
+        self.experience_failures: List[tuple] = []
         # how `_preempt_victims` finds splice points: "measured" from the
         # hub's residency records (modelled until enough samples), or
         # "modeled" from the plan's ledger model
@@ -361,10 +390,13 @@ class GlobalController:
             pipeline = build_pipeline(pipeline_name, profile=self.profile,
                                       config=scheduler_config)
         self.scheduler = MemoryScheduler(self.profile, scheduler_config,
-                                         pipeline=pipeline)
+                                         pipeline=pipeline,
+                                         experience=self.experience)
         if self.scheduler.pipeline.telemetry is None:
             self.scheduler.pipeline.telemetry = self.telemetry
-        self.cost_model = cost_model or CostModel()
+        # with a store attached, capture-time latency estimates start from
+        # the calibration a prior run persisted (an explicit model wins)
+        self.cost_model = cost_model or CostModel(experience=self.experience)
         # one engine ledger and DMA channel shared by every job
         self.engine = MemoryEngine(self.profile,
                                    capacity_bytes=device_capacity,
@@ -433,9 +465,18 @@ class GlobalController:
         seq, gm = capture_train_step(
             step_fn, params, opt_state, batch, job_id=spec.job_id,
             cost_model=self.cost_model)
+        fp = spec.fingerprint
+        if self.experience is not None:
+            try:
+                fp = self.experience.fingerprint(seq)
+            except Exception as e:  # noqa: BLE001 - cold boot instead
+                self.experience_failures.append((spec.job_id, e))
+                self.events.warn("experience",
+                                 "fingerprint computation failed; "
+                                 "job cold-boots",
+                                 job_id=spec.job_id, error=repr(e))
         return CapturedJob(seq=seq, graph_module=gm,
-                           args=(params, opt_state, batch),
-                           fingerprint=spec.fingerprint)
+                           args=(params, opt_state, batch), fingerprint=fp)
 
     # ------------------------------------------------------------------
     def _capture_serve_spec(self, spec) -> CapturedJob:
@@ -466,8 +507,21 @@ class GlobalController:
                      budget_hint_bytes: Optional[int] = None
                      ) -> Tuple[int, str]:
         """Admission hook #2: predicted peak bytes of a captured job and
-        its provenance: the analyzer's no-free bound (every tensor held to
-        its last use), raised to the caller's hint when one is given."""
+        its provenance.  A fingerprint the experience store knows returns
+        the peak a prior run measured (``"experience"``), else the smallest
+        certified peak of its stored plans (``"experience-plan"``); an
+        unknown one the analyzer's no-free bound (every tensor held to its
+        last use), raised to the caller's hint (``"cost-model"``)."""
+        if self.experience is not None:
+            try:
+                prior = self.experience.predicted_peak(seq)
+                if prior is not None:
+                    return prior
+            except Exception as e:  # noqa: BLE001 - fall through to model
+                self.events.warn("experience",
+                                 "predicted-peak prior lookup failed; "
+                                 "using cost-model bound",
+                                 job_id=seq.job_id, error=repr(e))
         bound = int(analyze([seq], free_at_last_use=False).peak_bytes)
         if budget_hint_bytes:
             bound = max(bound, int(budget_hint_bytes))
@@ -504,6 +558,26 @@ class GlobalController:
                 demand = analyze([seq], free_at_last_use=False).peak_bytes
                 self.arbiter.register(spec.job_id, priority=eff_priority,
                                       demand_bytes=demand)
+            if self.experience is not None:
+                # a prior run's distilled telemetry stands in for the live
+                # samples this job has not produced yet
+                try:
+                    prior = self.experience.prior(seq)
+                    if prior is not None and self.arbiter is not None:
+                        self.arbiter.set_prior(spec.job_id, prior)
+                except Exception as e:  # noqa: BLE001 - cold boot instead
+                    self.experience_failures.append((spec.job_id, e))
+                    self.events.warn("experience",
+                                     "arbiter prior lookup failed; "
+                                     "job starts with live samples only",
+                                     job_id=spec.job_id, error=repr(e))
+            if self.drift is not None:
+                # the admission-time prediction, pinned for the comparison
+                # at exit
+                try:
+                    handle.predicted_peak, _src = self.predict_peak(seq)
+                except Exception:  # noqa: BLE001 - drift is best-effort
+                    handle.predicted_peak = None
             if spec.schedule:
                 self._replan()
         t = threading.Thread(target=self._run_job, args=(handle,), daemon=True)
@@ -718,7 +792,9 @@ class GlobalController:
                         async_swap=self.async_swap, measure_latency=True,
                         telemetry=self.telemetry,
                         host_resident_inputs=set(parked),
-                        copy_stream=self.copy_stream)
+                        copy_stream=self.copy_stream,
+                        budget_bytes=handle.budget_bytes
+                        if self.hold_slices else None)
                     ex.host.update(parked)
                     ex.ctx.host_compressed |= {
                         st for st, rec in parked.items() if rec.compressed}
@@ -758,14 +834,22 @@ class GlobalController:
 
     # ------------------------------------------------------------------
     def _on_job_exit(self, handle: JobHandle) -> None:
-        """Departure bookkeeping: deregister from the scheduler and the
-        arbiter and redistribute the departed job's slice.  A job that
-        held no bytes of the split reclaims nothing, so its departure
+        """Departure bookkeeping: flush a train job's distilled run into
+        the experience store and feed the drift monitor (both while the hub
+        still holds the job's records), then deregister from the scheduler
+        and the arbiter and redistribute the departed job's slice.  A job
+        that held no bytes of the split reclaims nothing, so its departure
         replans nothing."""
         handle.done = True
         handle.executor = None
+        is_serve = _is_serve(handle)
         with self._lock:
-            if not _is_serve(handle):
+            if self.experience is not None and not is_serve:
+                self._flush_experience(handle)
+            if self.drift is not None and not is_serve \
+                    and handle.predicted_peak:
+                self._observe_drift(handle)
+            if not is_serve:
                 self.scheduler.remove_job(handle.job_id)
             if self.arbiter is not None:
                 reclaimed = self.arbiter.last_assignment.get(
@@ -782,6 +866,56 @@ class GlobalController:
                                      "survivor replan failed after job "
                                      "departure; current plans kept",
                                      job_id=handle.job_id, error=repr(e))
+
+    # ------------------------------------------------------------------
+    def _flush_experience(self, handle: JobHandle) -> None:
+        """Record and flush a finished job's distilled experience: its
+        telemetry summary, the recalibrated calibration and its final plan.
+        A failure is recorded, never raised.  Called under the lock."""
+        try:
+            self.cost_model.recalibrate(self.telemetry, report=False)
+            fp = handle.fingerprint \
+                or self.experience.fingerprint(handle.seq)
+            self.experience.record_job(
+                fp, seq=handle.seq, hub=self.telemetry,
+                job_id=handle.job_id, plan=handle.plan,
+                pipeline=self.scheduler.pipeline.name,
+                peak_bytes=max(handle.peak_bytes,
+                               self.accountant.job_peak(handle.job_id)),
+                calib=self.cost_model.calib,
+                calib_samples=self.telemetry.total_op_samples())
+            self.experience.flush()
+        except Exception as e:  # noqa: BLE001
+            self.experience_failures.append((handle.job_id, e))
+            self.events.warn("experience",
+                             "experience flush failed on job exit; "
+                             "distilled run lost",
+                             job_id=handle.job_id, error=repr(e))
+
+    def _observe_drift(self, handle: JobHandle) -> None:
+        """Hand the drift monitor the job's admission-time peak prediction
+        and its measured peak, and persist the sample at once.  Called
+        under the lock."""
+        measured = max(handle.peak_bytes,
+                       self.accountant.job_peak(handle.job_id))
+        if measured <= 0:
+            return
+        fp = handle.fingerprint or ""
+        if not fp and self.experience is not None:
+            try:
+                fp = self.experience.fingerprint(handle.seq)
+            except Exception:  # noqa: BLE001
+                fp = ""
+        self.drift.observe(fp or handle.job_id,
+                           predicted_peak=handle.predicted_peak,
+                           measured_peak=measured, job_id=handle.job_id)
+        if self.experience is not None:
+            try:
+                self.experience.flush()
+            except Exception as e:  # noqa: BLE001
+                self.events.warn("experience",
+                                 "drift-history flush failed",
+                                 job_id=handle.job_id, error=repr(e))
 
     # ------------------------------------------------------------------
     def report_latencies(self, job_id: str, measured: List[float]) -> bool:

@@ -3,9 +3,11 @@
 candidates, swappable count, activity analysis, MSPS statics), built once
 per sequence.
 
-A copy of the pass-state part of the JAX package's ``core/experience.py``
-(the experience store itself is not ported yet); the planners read it
-through ``default_pass_state``.
+A copy of the pass-state part of the JAX package's ``core/experience.py``.
+The planners read it through ``default_pass_state`` or, with an
+experience store attached, ``ExperienceStore.pass_state``
+(``core/experience.py``), which keys the same memo by the job's
+fingerprint.
 """
 from __future__ import annotations
 

@@ -472,3 +472,107 @@ def test_run_takes_the_state_as_one_flat_list(mlp):
     out = tc.FxExecutor(gm, seq, None).run(list(pytree.tree_leaves(
         mlp["args"])))
     assert _equal(out, mlp["unsched"])
+
+
+# ------------------------------------------------------------ budget guard
+class _LandsOnSync:
+    """A copy-stream event that lands when waited for."""
+
+    def __init__(self):
+        self.waited = False
+
+    def synchronize(self):
+        self.waited = True
+
+    def query(self):
+        return self.waited
+
+
+def _guarded(mlp, budget):
+    """An executor mid-run on the CPU: the MLP's inputs booked, and one
+    swap-out of its largest input issued and still on the wire."""
+    ex = tc.FxExecutor(mlp["gm"], mlp["seq"], mlp["plan"], async_swap=True,
+                       engine=tc.MemoryEngine(PROFILE), budget_bytes=budget)
+    ex.dev = torch.device("cpu")
+    ex.async_exec = tc.AsyncSwapExecutor(ex.channel, ex.dev)
+    lay = ex.layout
+    for n, v in zip(lay.inputs, pytree.tree_leaves(mlp["args"])):
+        ex._put_device(lay.tid[n], v)
+    st = max(ex.device, key=ex.ctx.size_of)
+    val = ex.device[st]
+    t = executor.Transfer("out:" + st, lambda: ex._host_put(
+        st, ex._to_host(val, False)))
+    t.fn()
+    t.issued, t.event = True, _LandsOnSync()
+    ex.async_exec.inflight[t.key] = t
+    ex._pending_out[st] = (t, False, val)
+    return ex, st, t
+
+
+@pytest.mark.parametrize("over", [False, True])
+def test_budget_guard_waits_for_swap_outs_on_the_wire(mlp, over):
+    """Booking past ``budget_bytes`` first waits for the issued swap-outs
+    and retires them (the device copy leaves the ledger); within the
+    budget, or with no budget, nothing waits."""
+    probe, _, _ = _guarded(mlp, None)
+    booked = probe.accountant.job_bytes(probe.ctx.job_id)
+    probe._hold_budget(1 << 40)
+    assert probe._pending_out and probe.stats.budget_waits == 0
+    incoming = 4096
+    budget = booked + incoming - (1 if over else 0)
+    ex, st, t = _guarded(mlp, budget)
+    ex._hold_budget(incoming)
+    assert t.event.waited is over
+    assert (st not in ex.device) is over
+    assert (st in ex._pending_out) is not over
+    assert ex.stats.budget_waits == int(over)
+    if over:
+        assert ex.accountant.job_bytes(ex.ctx.job_id) \
+            == booked - ex.ctx.size_of(st)
+        assert ex.stats.swap_out_count == 1 and st in ex.host
+
+
+@pytest.mark.parametrize("plan", [False, True])
+@pytest.mark.parametrize("async_swap", [False, True])
+def test_budget_guard_holds_the_slice_and_the_values(mlp, plan, async_swap):
+    """A run under a budget below its own peak (0.7 of the unscheduled
+    peak, and of the plan's): the guard swaps out what is read again last,
+    the readers swap it back in, the ledger stays within the budget and the
+    outputs are the unscheduled run's bit for bit, again in a second
+    iteration from the state the first left on the host."""
+    p = mlp["plan"] if plan else None
+    free, _, _ = _exec(mlp, p, async_swap=async_swap)
+    budget = int(0.7 * free.stats.peak_bytes)
+    ex, eng, out = _exec(mlp, p, async_swap=async_swap, budget_bytes=budget)
+    assert _equal(out, mlp["unsched"])
+    assert ex.stats.budget_evictions > 0
+    assert eng.ledger.peak <= budget < free.stats.peak_bytes
+    assert ex.stats.swap_in_count >= ex.stats.passive_swap_ins > 0
+    # the second iteration: the state the first parked on the host enters
+    # as host-resident inputs, with no stale copy of an evicted activation
+    parked = {st: ex.host[st] for st in ex.ending_host_storages()}
+    ex2 = tc.FxExecutor(mlp["gm"], mlp["seq"], p, async_swap=async_swap,
+                        engine=tc.MemoryEngine(PROFILE), budget_bytes=budget,
+                        host_resident_inputs=set(parked))
+    ex2.host.update(parked)
+    out2 = ex2.run(*_state_of(mlp, out))
+    ex2.close()
+    ref2 = tc.FxExecutor(mlp["gm"], mlp["seq"], None).run(
+        *_state_of(mlp, mlp["unsched"]))
+    assert _equal(out2, ref2)
+
+
+def _state_of(mlp, outs):
+    """The step's arguments for the next iteration: the parameters and
+    moments ``outs`` holds, the same batch."""
+    params, opt, batch = mlp["args"]
+    p_spec = pytree.tree_structure(params)
+    o_spec = pytree.tree_structure(opt)
+    n_p, n_o = p_spec.num_leaves, o_spec.num_leaves
+    return (pytree.tree_unflatten(list(outs[:n_p]), p_spec),
+            pytree.tree_unflatten(list(outs[n_p:n_p + n_o]), o_spec), batch)
+
+
+def test_executor_floor_is_the_executor_s_per_operator_time():
+    floor = tc.executor_floor("cpu")
+    assert 0 < floor < 0.05

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, loads JAX or the JAX package; and its entry points
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not ``tools/experience_torch.py`` loads JAX or the
+JAX package; and its entry points
 refuse to run on a missing card instead of falling back to the CPU."""
 import os
 import subprocess
@@ -14,7 +15,8 @@ from repro_torch.configs import get_config
 from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# the TENSILE loop's, the SSM slice's and the multi-job runtime's modules:
+# the TENSILE loop's, the SSM slice's, the multi-job runtime's and the
+# experience plane's modules:
 # each must be among those walked and checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
@@ -23,7 +25,8 @@ TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.simulator", "core.baselines", "core.cost_model",
     "core.graph_capture", "core.executor", "kernels.offload_quant",
     "service.workloads", "optim.adam", "models.ssm", "kernels.ssd_scan",
-    "core.multiplexer", "service.jobspec", "obs.events")]
+    "core.multiplexer", "service.jobspec", "obs.events", "core.experience",
+    "obs.metrics", "obs.drift")]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -35,6 +38,10 @@ def test_port_and_chip_smoke_import_no_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        import importlib.util
+        tool = importlib.util.spec_from_file_location(
+            "experience_torch", "tools/experience_torch.py")
+        tool.loader.exec_module(importlib.util.module_from_spec(tool))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         missing = sorted(set(TENSILE) - set(names))

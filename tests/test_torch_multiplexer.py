@@ -395,6 +395,65 @@ def test_two_staggered_jobs_finish_within_the_capacity(mode):
                       torch.utils._pytree.tree_leaves(state[:2]))
 
 
+def _one_job_over_its_plan(monkeypatch, **kw):
+    """One job alone at 0.6 of its unscheduled peak, a slice its plan does
+    not reach, under a controller built with ``kw``: the handle, the
+    controller, the capacity, and the budget each executor was given.
+    The final state must be the unscheduled runs' bit for bit."""
+    j1 = _solo(*LARGE, seed=1, job_id="j1")
+    cap = int(0.6 * j1["peak"])
+    budgets = []
+    init = tc.FxExecutor.__init__
+
+    def spy(self, *a, **kw):
+        budgets.append(kw.get("budget_bytes"))
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(tc.FxExecutor, "__init__", spy)
+    gc = tc.GlobalController(profile=PROFILE, async_swap=True,
+                             pipeline_name="tensile+autoscale",
+                             arbiter_policy="equal", device_capacity=cap,
+                             device="cpu", cost_model=tc.CostModel(CALIB),
+                             **kw)
+    h = gc.submit(JobSpec("j1", iterations=2, payload=j1["payload"]))
+    gc.wait(timeout=300)
+    assert h.done and h.error is None
+    assert h.plan.planned_peak_bytes > cap
+    given = list(budgets)
+    step, params, opt, batch = make_mlp(*LARGE, seed=1, device="cpu")
+    seq, gm = tc.capture_train_step(step, params, opt, batch)
+    state = [params, opt, batch]
+    for _ in range(2):
+        outs = tc.FxExecutor(gm, seq, None).run(*state)
+        state = list(torch.utils._pytree.tree_unflatten(
+            outs[:len(torch.utils._pytree.tree_leaves(state[:2]))],
+            torch.utils._pytree.tree_structure(state[:2]))) + [batch]
+    assert _equal(torch.utils._pytree.tree_leaves(h.args[:2]),
+                  torch.utils._pytree.tree_leaves(state[:2]))
+    return h, gc, cap, given
+
+
+def test_a_job_holds_its_slice_when_its_plan_cannot(monkeypatch):
+    """With ``hold_slices``, each executor is given the job's slice
+    (``FxExecutor(budget_bytes=...)``) and swaps out more itself, so the
+    ledger stays within the capacity."""
+    h, gc, cap, budgets = _one_job_over_its_plan(monkeypatch,
+                                                 hold_slices=True)
+    assert budgets == [cap, cap]
+    assert sum(st.budget_evictions for st in h.stats) > 0
+    assert gc.global_peak_bytes <= cap
+
+
+def test_by_default_a_job_runs_its_plan_as_planned(monkeypatch):
+    """Without ``hold_slices`` (the default, as the reference's
+    controller) no executor is given a budget: the job runs the plan it
+    was given, over the capacity, and swaps out nothing of its own."""
+    h, gc, cap, budgets = _one_job_over_its_plan(monkeypatch)
+    assert budgets == [None, None]
+    assert sum(st.budget_evictions + st.budget_waits for st in h.stats) == 0
+    assert gc.global_peak_bytes > cap
+
+
 def test_job_thread_failure_surfaces_through_wait(monkeypatch):
     def boom(self, *args, **kwargs):
         raise RuntimeError("executor exploded")
@@ -428,12 +487,44 @@ def test_controller_refuses_a_payload_off_its_device(monkeypatch):
         tc.GlobalController(profile=PROFILE)
 
 
-@pytest.mark.parametrize("kw", [{"experience": object()},
+@pytest.mark.parametrize("kw", [{"experience": "store"},
                                 {"experience_dir": "store"},
-                                {"drift": object()}])
-def test_unported_hooks_are_refused(kw):
-    with pytest.raises(NotImplementedError):
-        tc.GlobalController(profile=PROFILE, device="cpu", **kw)
+                                {"drift": "monitor"}])
+def test_unported_hooks_are_refused(kw, tmp_path):
+    """The three hooks the controller refused until the experience plane
+    and the drift monitor were ported (the name is kept): each is now
+    accepted and does its work on a small job.  A store, given or made
+    from a directory, gets the job's distilled run at exit and answers
+    ``predict_peak`` with its measured peak; a monitor gets one sample
+    comparing the admission-time prediction with that peak."""
+    from repro_torch.obs import DriftMonitor
+    (hook, _), = kw.items()
+    root = str(tmp_path / "store")
+    arg = {"experience": lambda: tc.ExperienceStore(
+               root, device_id=tc.device_identity(PROFILE)),
+           "experience_dir": lambda: root,
+           "drift": DriftMonitor}[hook]()
+    gc = tc.GlobalController(profile=PROFILE, async_swap=False,
+                             device="cpu", **{hook: arg})
+    spec = JobSpec("j", iterations=1, payload=make_mlp(*SMALL, device="cpu"))
+    cap = gc.capture_spec(spec)
+    h = gc.submit(spec, cap)
+    gc.wait(timeout=120)
+    assert h.done and h.error is None
+    measured = max(h.peak_bytes, gc.accountant.job_peak("j"))
+    if hook == "drift":
+        assert gc.experience is None and h.fingerprint is None
+        sample = arg.last("j")
+        assert (sample.predicted_peak, sample.measured_peak) \
+            == (h.predicted_peak, measured)
+        assert h.predicted_peak == gc.predict_peak(cap.seq)[0]
+        return
+    store = gc.experience
+    assert store is arg or store.root == os.path.abspath(root)
+    assert store.fingerprints() == [h.fingerprint]
+    assert gc.predict_peak(cap.seq) == (measured, "experience")
+    assert store.device_calibration() == gc.cost_model.calib
+    assert not gc.experience_failures
 
 
 def test_serve_job_under_the_controller_keeps_the_golden_tokens(monkeypatch):
