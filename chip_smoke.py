@@ -69,7 +69,8 @@ random weights from seed 0):
 5. The multi-job runtime (``multi_job``, in a fresh process): one
    ``GlobalController`` on the card's profile (``tensile+autoscale``,
    async swaps, priority arbitration in ``preempt`` mode) runs job A (the
-   train step above, 2 iterations), job B (the same model at B 2, 2
+   train step above at CONTROLLER_LAYERS of its 22 layers, full width, 2
+   iterations), job B (the same model at B 2, 2
    iterations, captured before A starts and submitted while A is
    mid-iteration) and job S (the serve phase's serve, through a serve
    factory registered here), with each job's slice set by its priority:
@@ -114,6 +115,24 @@ random weights from seed 0):
    for its swap-outs, or swaps out more, where a plan exceeds the slice or
    its model misjudges the card); the predictor's loss falls and its R² is
    finite.
+7. The training launcher (``train_launcher``, in a fresh process), B 4,
+   S 1024: the launcher's train step captured on fake tensors and
+   planned by ``schedule_for_budget`` at LAUNCHER_BUDGET of its planned
+   peak; under ``make_remat_policy`` of those decisions the loss and
+   gradients must equal the block remat step's bit for bit; one step with
+   the moments in pinned host memory (``offload_opt_state``) must give
+   the on-card step's parameters and moments bit for bit and save at
+   least 0.8 of the moments' bytes of the card's allocator peak; int8
+   error-feedback gradients on one batch, whose loss must fall, whose
+   residual must be finite and not zero, and whose compression call on
+   the card must equal the CPU's bit for bit; six steps of
+   ``resilient_train_loop`` through the ``Prefetcher`` with a checkpoint
+   at step 3 (``keep`` 1, in a temporary directory outside the checkout,
+   the free disk checked first) and a failure injected once at step 4,
+   which must restart once, feed the stream's batches in order and end
+   with the state of an unbroken run (sha256); then
+   ``launch.train.main`` itself (``--full``, the same budget, int8
+   gradients) for LAUNCHER_MAIN_STEPS steps.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -144,6 +163,7 @@ import torch.utils._pytree as pytree
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.core import (BudgetArbiter, CostModel,  # noqa: E402
@@ -154,12 +174,14 @@ from repro_torch.core import (BudgetArbiter, CostModel,  # noqa: E402
                               SchedulingPlan, analyze,
                               build_pipeline, calibrate_cuda,
                               capture_train_step, evaluate, executor_floor,
-                              find_safe_points,
-                              schedule_single, simulate)
+                              find_safe_points, make_remat_policy,
+                              schedule_for_budget, schedule_single, simulate)
 from repro_torch.core.passes import (CompressedOffloadPass,  # noqa: E402
                                      RecomputePass, SwapPass)
 import repro_torch.core.executor as tensile_executor  # noqa: E402
 from repro_torch.core.graph_capture import graph_layout  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig, Prefetcher,  # noqa: E402
+                                       TokenStream, to_device)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_block_copy as kbc  # noqa: E402
 from repro_torch.kernels import offload_quant as oq  # noqa: E402
@@ -172,10 +194,12 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      kv_block_scatter_ref,
                                      quantize_blocked_ref,
                                      ssd_intra_chunk_ref)
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
                                      build_functional_train_step,
                                      build_prefill_step, build_train_step,
-                                     opt_state_for)
+                                     offloaded_bytes, opt_state_for,
+                                     opt_state_to_host)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
@@ -185,6 +209,9 @@ from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.obs import (DriftMonitor, EventLog,  # noqa: E402
                              MetricsRegistry)
 from repro_torch.optim.adam import adamw_init  # noqa: E402
+from repro_torch.optim.compression import ef_compress_grads  # noqa: E402
+from repro_torch.runtime.fault_tolerance import (  # noqa: E402
+    FTConfig, resilient_train_loop)
 from repro_torch.service import JobSpec, ServeParams  # noqa: E402
 from repro_torch.service.workloads import (  # noqa: E402
     make_mlp, mlp_numpy, register_serve_workload, register_workload,
@@ -264,6 +291,11 @@ ALLOC_LEDGER_TOL = 0.05
 # time) and B 2, so B's first boundary falls while A runs and its second
 # iteration starts from the state it parked on the host
 MULTI_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 2, 1)}
+# ... at full width and this many of TinyLlama's 22 layers (22 until PR 21:
+# the script's time limit now holds the training launcher's phase too,
+# and the controller's replans grow with the operator count; the
+# experience phases keep 22, where their warm boot is gated)
+CONTROLLER_LAYERS = 11
 MULTI_SLICE = 0.85
 MULTI_SERVE_SLICE = 0.5
 MULTI_PIPELINE = "tensile+autoscale"
@@ -279,6 +311,14 @@ EXPERIENCE_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 1, 1)}
 EXPERIENCE_SLICE = MULTI_SLICE
 # the drift monitor's default threshold (obs/drift.py)
 DRIFT_THRESHOLD = 0.15
+# train_launcher: TENSILE's decisions for the launcher's step at this
+# fraction of its capture's planned peak; the restart run's steps, its
+# checkpoint period and the step that fails once; the int8 run's steps on
+# one batch; the steps of the entry point's own run
+LAUNCHER_BUDGET = 0.7
+LAUNCHER_STEPS, LAUNCHER_CKPT_EVERY, LAUNCHER_FAIL_AT = 6, 3, 4
+LAUNCHER_INT8_STEPS = 4
+LAUNCHER_MAIN_STEPS = 3
 # the cold-start predictor's fit on A's measured operators
 MLP_FIT = {"steps": 2000, "lr": 3e-3, "train_share": 0.8, "seed": 0}
 # A compressed step against the unscheduled (exact) step from the same
@@ -2437,7 +2477,8 @@ def multi_job(link: dict) -> dict:
     its profile of a concurrent window loses no events to earlier
     phases."""
     deterministic()
-    cfg = dataclasses.replace(get_config(ARCH), remat="none")
+    cfg = dataclasses.replace(get_config(ARCH), remat="none",
+                              n_layers=CONTROLLER_LAYERS)
     api = get_model(cfg, "cuda")
     step = build_functional_train_step(api, TrainStepConfig())
     register_workload(TRAIN_WORKLOAD, train_workload(cfg, api, step))
@@ -3190,6 +3231,337 @@ def experience_warm(link: dict, store_dir: str, cold: dict,
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+def loss_and_grads(api, params, batch, policy=None) -> tuple:
+    """The train step's loss and gradients (by parameter name) on
+    ``params``, each block repeat checkpointed under ``policy`` (else as
+    ``api.cfg.remat`` says)."""
+    named = dict(params.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    try:
+        loss = api.loss(params, batch, remat_policy=policy)
+        grads = torch.autograd.grad(loss, list(named.values()))
+    finally:
+        for p in named.values():
+            p.requires_grad_(False)
+    return loss.detach(), dict(zip(named, grads))
+
+
+def _peak_of(fn, dev: str) -> tuple:
+    """``fn()``, its seconds (synchronised) and the card's allocator peak
+    over it (None on the CPU)."""
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return out, s, (torch.cuda.max_memory_allocated() if dev == "cuda"
+                    else None)
+
+
+def _host_leaves(*trees) -> list:
+    """Host copies of every tensor of ``trees`` (of a module, its
+    parameters)."""
+    out = []
+    for tree in trees:
+        leaves = (list(tree.parameters())
+                  if isinstance(tree, torch.nn.Module)
+                  else pytree.tree_leaves(tree))
+        out += [t.detach().to("cpu", copy=True) for t in leaves]
+    return out
+
+
+def _all_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def timing_checkpoints(times: dict):
+    """While active, add the seconds of each checkpoint snapshot (the copy
+    of the state to the host), write and restore into ``times``."""
+    cls = CheckpointManager
+    names = ("_snapshot", "_write", "restore")
+    saved = {n: cls.__dict__[n] for n in names}
+
+    def timed_fn(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times.setdefault(name, []).append(time.perf_counter() - t0)
+        return call
+
+    cls._snapshot = staticmethod(timed_fn("snapshot", cls._snapshot))
+    cls._write = timed_fn("write", saved["_write"])
+    cls.restore = timed_fn("restore", saved["restore"])
+    try:
+        yield times
+    finally:
+        for n, f in saved.items():
+            setattr(cls, n, f)
+
+
+def _restart_run(api, cfg, tcfg, ckpt_dir: str, dev: str, batch: int,
+                 seq: int, fail_at=None) -> dict:
+    """LAUNCHER_STEPS steps of the launcher's loop from a fresh state
+    (weights from seed 0), data from the stream through the prefetcher,
+    a checkpoint every LAUNCHER_CKPT_EVERY steps (none with ``fail_at``
+    None, the uninterrupted run, beyond the final one): the loop's result,
+    the state's digest, the batches each step took, the checkpoint's
+    bytes and the checkpoints' seconds."""
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    opt = opt_state_for(params)
+    stream = TokenStream(DataConfig(seq_len=seq, global_batch=batch,
+                                    vocab_size=cfg.vocab_size))
+    pf = Prefetcher(stream, to_device=to_device(dev))
+    step = build_train_step(api, tcfg)
+    fed, losses = [], []
+
+    def logged(p, o, b):
+        fed.append(hashlib.sha256(b["tokens"].cpu().numpy().tobytes())
+                   .hexdigest()[:16])
+        p, o, m = step(p, o, b)
+        losses.append(float(m["loss"]))
+        return p, o, m
+
+    times: dict = {}
+    try:
+        with timing_checkpoints(times):
+            res = resilient_train_loop(
+                logged, (params, opt), pf, LAUNCHER_STEPS,
+                ft=FTConfig(ckpt_dir=ckpt_dir, keep=1, ckpt_every=(
+                    LAUNCHER_CKPT_EVERY if fail_at else 0)),
+                data_stream=stream, fail_at=fail_at)
+    finally:
+        pf.close()
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    d = mgr._step_dir(mgr.latest_step())
+    want = [hashlib.sha256(stream.batch_at(s)["tokens"].tobytes())
+            .hexdigest()[:16] for s in range(LAUNCHER_STEPS)]
+    return {"restarts": res.restarts, "final_step": res.final_step,
+            "digest": state_digest((dict(params.named_parameters()), opt)),
+            "fed": fed,
+            "stream_batches": want, "losses": losses,
+            "ckpt_bytes": sum(os.path.getsize(os.path.join(d, f))
+                              for f in os.listdir(d)),
+            "ckpt_s": times}
+
+
+def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
+                   seq: int = TRAIN_S) -> dict:
+    """The training launcher's path (``launch.train``) at full width on
+    the card: TENSILE's decisions as a remat policy, moments on the host,
+    int8 error-feedback gradients, prefetch, checkpoints and a restart,
+    then ``launch.train.main`` itself.  Runs in a fresh process
+    (``in_fresh_process``).  ``device``, ``cfg``, ``batch`` and ``seq``
+    rehearse it on the CPU at a reduced size."""
+    deterministic()
+    dev = device
+    cfg = cfg or get_config(ARCH)
+    card = card_line() if dev == "cuda" else "cpu"
+    api = get_model(cfg, dev)
+    rec: dict = {"card": card}
+    stream = TokenStream(DataConfig(seq_len=seq, global_batch=batch,
+                                    vocab_size=cfg.vocab_size))
+    data = to_device(dev)(stream.batch_at(0))
+
+    # TENSILE's decisions: the step without remat captured on fake tensors,
+    # planned at LAUNCHER_BUDGET of its planned peak
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    opt = opt_state_for(params)
+    probe = build_functional_train_step(
+        get_model(dataclasses.replace(cfg, remat="none"), dev),
+        TrainStepConfig())
+    t0 = time.perf_counter()
+    seqn, _ = capture_train_step(probe, dict(params.named_parameters()),
+                                 opt, data)
+    capture_s = time.perf_counter() - t0
+    planned = simulate([seqn], None, MachineProfile(), iterations=1,
+                       transfer_mode="sync").peak_bytes
+    budget = int(LAUNCHER_BUDGET * planned)
+    t0 = time.perf_counter()
+    decisions = schedule_for_budget(seqn, budget)
+    plan_s = time.perf_counter() - t0
+    rec["tensile"] = {
+        "operators": len(seqn.operators), "capture_s": capture_s,
+        "planned_peak": planned, "budget": budget, "plan_s": plan_s,
+        "remat_names": len(decisions.remat_names),
+        "offload_names": len(decisions.offload_names),
+        "offload_opt_state": decisions.offload_opt_state,
+        "device_peak_estimate": decisions.device_peak_estimate,
+        "host_bytes_estimate": decisions.host_bytes_estimate}
+    log(f"[train_launcher] decisions: {decisions.summary()[:3000]}")
+    del seqn, probe
+    policy = make_remat_policy(decisions)
+
+    # the policy step against the block remat step, same state (after one
+    # untimed call)
+    block = get_model(dataclasses.replace(cfg, remat="block"), dev)
+    loss_and_grads(block, params, data)
+    (want, block_s, block_peak) = _peak_of(
+        lambda: loss_and_grads(block, params, data), dev)
+    (got, policy_s, policy_peak) = _peak_of(
+        lambda: loss_and_grads(api, params, data, policy), dev)
+    same = torch.equal(got[0], want[0]) and all(
+        torch.equal(got[1][k], want[1][k]) for k in want[1])
+    rec["policy"] = {"bit_identical": same, "loss": float(got[0]),
+                     "block_s": block_s, "policy_s": policy_s,
+                     "block_max_memory_allocated": block_peak,
+                     "policy_max_memory_allocated": policy_peak}
+    log(f"[train_launcher] {card}: policy vs block remat "
+        + json.dumps(rec["policy"]))
+    if not same:
+        raise AssertionError("the TENSILE policy step differs from the "
+                             "block remat step")
+    del got, want
+
+    # moments on the host: one step each way from the same state (after
+    # one step under the policy, so the moments are not zero)
+    step = build_train_step(api, TrainStepConfig(remat_policy=policy))
+    _, opt, _ = step(params, opt, data)
+    start = _host_leaves(params)
+    moments = _host_leaves(opt.mu, opt.nu)
+    host_opt = opt_state_to_host(opt)
+    del opt
+    off_step = build_train_step(api, TrainStepConfig(
+        remat_policy=policy, offload_opt_state=True))
+    (_, host_opt, m_off), off_s, off_peak = _peak_of(
+        lambda: off_step(params, host_opt, data), dev)
+    off = _host_leaves(params, host_opt.mu, host_opt.nu)
+    off_bytes = offloaded_bytes(host_opt)
+    pinned = dev != "cuda" or all(t.is_pinned() for t in pytree.tree_leaves(
+        (host_opt.mu, host_opt.nu)))
+    del host_opt
+    with torch.no_grad():
+        for p, t in zip(params.parameters(), start):
+            p.copy_(t)
+    dev_opt = opt_state_for(params)
+    with torch.no_grad():
+        for d, t in zip(list(dev_opt.mu.values())
+                        + list(dev_opt.nu.values()), moments):
+            d.copy_(t)
+    dev_opt = dev_opt._replace(step=torch.ones((), dtype=torch.int32,
+                                               device=dev))
+    (_, dev_opt, m_dev), dev_s, dev_peak = _peak_of(
+        lambda: step(params, dev_opt, data), dev)
+    plain = _host_leaves(params, dev_opt.mu, dev_opt.nu)
+    same = _all_equal(off, plain) and torch.equal(m_off["loss"],
+                                                  m_dev["loss"])
+    rec["opt_host"] = {"bit_identical": same, "offloaded_bytes": off_bytes,
+                       "pinned": pinned, "step_s": off_s,
+                       "on_card_step_s": dev_s,
+                       "max_memory_allocated": off_peak,
+                       "on_card_max_memory_allocated": dev_peak}
+    log(f"[train_launcher] {card}: moments on the host "
+        + json.dumps(rec["opt_host"]))
+    del dev_opt, start, moments, off, plain
+    if not same or not pinned:
+        raise AssertionError("the step with moments on the host is not the "
+                             "on-card step bit for bit, or left them "
+                             "unpinned")
+    if dev == "cuda" and dev_peak - off_peak < 0.8 * off_bytes:
+        raise AssertionError(
+            f"moments on the host saved {dev_peak - off_peak} B of the "
+            f"card, less than 0.8 x {off_bytes} B")
+
+    # int8 error-feedback gradients, the launcher's int8 step on one batch
+    del params
+    params = api.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(dict(params.named_parameters()), grad_compression=True)
+    comp = build_train_step(api, TrainStepConfig(
+        grad_compression="int8", remat_policy=policy))
+    losses, comp_s = [], []
+    for _ in range(LAUNCHER_INT8_STEPS):
+        (_, opt, m), s, _ = _peak_of(lambda: comp(params, opt, data), dev)
+        losses.append(float(m["loss"]))
+        comp_s.append(s)
+    ef_ok = all(bool(torch.isfinite(t).all()) for t in opt.ef.values()) \
+        and any(bool(t.abs().max() > 0) for t in opt.ef.values())
+    _, grads = loss_and_grads(api, params, data, policy)
+    ef = {k: t.clone() for k, t in opt.ef.items()}
+    card_g, card_s = ef_compress_grads(grads, opt._replace(ef=ef))
+    t0 = time.perf_counter()
+    cpu_g, cpu_s = ef_compress_grads(
+        {k: g.cpu() for k, g in grads.items()},
+        opt._replace(ef={k: t.cpu() for k, t in opt.ef.items()}))
+    cpu_time = time.perf_counter() - t0
+    bits = all(torch.equal(card_g[k].cpu(), cpu_g[k])
+               and torch.equal(card_s.ef[k].cpu(), cpu_s.ef[k])
+               for k in grads)
+    rec["int8"] = {"losses": losses, "step_s": comp_s, "ef_ok": ef_ok,
+                   "card_equals_cpu": bits, "cpu_call_s": cpu_time}
+    log(f"[train_launcher] {card}: int8 gradients " + json.dumps(rec["int8"]))
+    del grads, card_g, card_s, cpu_g, cpu_s, ef, opt, params
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"int8 training: loss {losses}")
+    if not ef_ok or not bits:
+        raise AssertionError("int8 gradients: the residual is zero or not "
+                             "finite, or the card's call differs from the "
+                             "CPU's")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # prefetch, checkpoints and a restart, outside the checkout
+    root = tempfile.mkdtemp(prefix="train-launcher-")
+    try:
+        # bf16 parameters and two fp32 moments: 10 B a parameter
+        state_bytes = 5 * sum(p.numel() * p.element_size() for p in
+                              TransformerLM(cfg, device="meta").parameters())
+        free = shutil.disk_usage(root).free
+        if free < 2.5 * state_bytes:
+            raise AssertionError(
+                f"{free} B free under {root}: the restart run needs 2.5 x "
+                f"the {state_bytes} B state")
+        tcfg = TrainStepConfig(remat_policy=policy)
+        broken = _restart_run(api, cfg, tcfg, os.path.join(root, "a"), dev,
+                              batch, seq, fail_at={LAUNCHER_FAIL_AT: 1})
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        whole = _restart_run(api, cfg, tcfg, os.path.join(root, "b"), dev,
+                             batch, seq)
+        rec["restart"] = {"restarts": broken["restarts"],
+                          "final_step": broken["final_step"],
+                          "same_digest": broken["digest"] == whole["digest"],
+                          "fed": broken["fed"], "whole_fed": whole["fed"],
+                          "losses": broken["losses"],
+                          "whole_losses": whole["losses"],
+                          "ckpt_bytes": broken["ckpt_bytes"],
+                          "ckpt_s": broken["ckpt_s"],
+                          "whole_ckpt_s": whole["ckpt_s"],
+                          "free_disk_bytes": free}
+        log(f"[train_launcher] {card}: restart " + json.dumps(rec["restart"]))
+        resumed = broken["fed"] == whole["fed"] == whole["stream_batches"]
+        if not (broken["restarts"] == 1 and whole["restarts"] == 0
+                and broken["final_step"] == LAUNCHER_STEPS - 1
+                and broken["digest"] == whole["digest"] and resumed):
+            raise AssertionError("the restarted run is not the unbroken "
+                                 "one: " + json.dumps(rec["restart"]))
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+        # the entry point itself
+        args = ["--arch", ARCH, "--steps", str(LAUNCHER_MAIN_STEPS), "--batch", str(batch),
+                "--seq", str(seq), "--tensile-budget-mb", str(budget / 2**20),
+                "--grad-compression", "int8", "--device", dev,
+                "--ckpt-dir", os.path.join(root, "main"), "--log-every", "1"]
+        if dev == "cuda":
+            args.insert(2, "--full")
+        rc, main_s, main_peak = _peak_of(lambda: launch_train.main(args), dev)
+        rec["main"] = {"args": args, "rc": rc, "s": main_s,
+                       "max_memory_allocated": main_peak}
+        log(f"[train_launcher] {card}: main " + json.dumps(rec["main"]))
+        if rc != 0:
+            raise AssertionError(f"launch.train.main returned {rc}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
 @contextlib.contextmanager
 def counting_swaps(counts: collections.Counter):
     """While active, count the executor's host copies (``out_``) and host
@@ -3402,6 +3774,13 @@ def main() -> int:
         "mlp": cold["mlp"], "capture_mlp": cold["capture_mlp"],
         "store_bytes": warm["store_bytes"]}))
 
+    # the training launcher at full width, in a fresh process: TENSILE's
+    # decisions as a remat policy, moments on the host, int8 gradients,
+    # prefetch, checkpoints and a restart, then the entry point
+    tl = timed("train_launcher", lambda: in_fresh_process(
+        "train_launcher", timeout=900))
+    log("[train_launcher] " + json.dumps(tl))
+
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         tl = kv_times["tinyllama"]
@@ -3491,7 +3870,8 @@ def main() -> int:
     return 0
 
 
-FRESH_PHASES = {"experience_cold": experience_cold,
+FRESH_PHASES = {"train_launcher": train_launcher,
+                "experience_cold": experience_cold,
                 "experience_warm": experience_warm,
                 "multi_job": multi_job,
                 "profile_restore": profile_restore,

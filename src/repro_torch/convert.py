@@ -65,11 +65,9 @@ def params_from_jax(np_tree: Dict[str, Any], cfg, device=None
 def adam_state_from_jax(np_state, model: TransformerLM) -> AdamState:
     """The port's :class:`AdamState` for ``model`` holding the values of the
     reference's ``AdamState`` given as numpy (``jax.tree.map(np.asarray,
-    state)``), on the model's device, keyed by parameter name.  Raises if a
-    moment's key set or shape differs from the model's parameters."""
-    if len(getattr(np_state, "ef", ())):
-        raise NotImplementedError("error-feedback (grad compression) state "
-                                  "is not ported yet")
+    state)``), on the model's device, keyed by parameter name; its
+    error-feedback residual ``ef`` comes across too.  Raises if a moment's
+    key set or shape differs from the model's parameters."""
     named = dict(model.named_parameters())
     device = next(iter(named.values())).device
 
@@ -87,8 +85,9 @@ def adam_state_from_jax(np_state, model: TransformerLM) -> AdamState:
     master = tree(np_state.master) if len(np_state.master) else ()
     step = torch.tensor(int(np.asarray(np_state.step)), dtype=torch.int32,
                         device=device)
+    ef = getattr(np_state, "ef", ())
     return AdamState(step=step, mu=tree(np_state.mu), nu=tree(np_state.nu),
-                     master=master)
+                     master=master, ef=tree(ef) if len(ef) else ())
 
 
 LATENCY_MLP_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")

@@ -25,6 +25,9 @@ al., 2021) for captured aten graphs on a CUDA card.
                                      budget split across live jobs, each
                                      on its own thread and stream
     baselines                     -- vanilla / vDNN_conv / Capuchin wrappers
+    schedule_for_budget / make_remat_policy -- TENSILE decisions as a
+                                     train-step policy (selective
+                                     checkpointing, moments on the host)
 
 The planner modules are copies of the JAX package's; capture, the cost
 model's node rules, the executor and the controller's runtime are this
@@ -38,12 +41,16 @@ from .cost_model import (CalibrationReport, CostModel, DeviceCalibration,
 from .engine import (DeviceLedger, DmaChannel, EngineTrace, JobContext,
                      JobLedgerView, MemoryEngine, SafePoint, TraceRecord,
                      find_safe_points)
-from .executor import (AsyncSwapExecutor, ExecutionStats, FxExecutor,
-                       executor_floor, reference_outputs)
+from .executor import (AsyncSwapExecutor, BudgetExceededError,
+                       ExecutionStats, FxExecutor, executor_floor,
+                       reference_outputs)
 from .experience import (CalibrationRecord, ExperienceEntry, ExperienceStore,
                          PlanRecord, TelemetrySummary, budget_bucket,
                          device_identity, fingerprint, sequence_signature)
 from .graph_capture import CaptureSpec, capture, capture_train_step
+from .integration import (RematPolicy, TensileDecisions, checkpoint_name,
+                          make_remat_policy, opt_state_placement,
+                          plan_decisions, schedule_for_budget)
 from .multiplexer import (ARBITER_MODES, ARBITER_POLICIES, BudgetArbiter,
                           CapturedJob, GlobalController, JobFailedError,
                           JobHandle)

@@ -58,11 +58,16 @@ controller passes when built with ``hold_slices=True``): the planner can
 return a plan above the slice, a plan is certified by the planner's model,
 whose clock is the operators' estimated latencies, and a first iteration
 starts with every input on the device where the plan's steady state parks
-some.  Before any booking that would take the job over its slice, the
-executor waits for its swap-outs already on the wire to land, then swaps
-out resident storages itself, the one read again last first; their
-readers swap them in passively.  Swaps copy, so the values never change;
-without a budget nothing of this runs.
+some.  Before any booking that would take the job over its slice (an
+operator's inputs and results, with the producers' inputs of what it
+recomputes; a planned prefetch or recompute; an input, a constant or an
+output brought back), the executor waits for its swap-outs already on the
+wire to land, then swaps out resident storages itself, the one read again
+last first (a storage whose prefetch has been issued is waited for first);
+their readers swap them in passively.  A planned prefetch or recompute
+that still does not fit is left to its reader; what an operator must hold
+at once that does not fit raises ``BudgetExceededError``.  Swaps copy, so
+the values never change; without a budget nothing of this runs.
 """
 from __future__ import annotations
 
@@ -117,6 +122,15 @@ class ExecutionStats:
     budget_waits: int = 0
     budget_wait_s: float = 0.0
     budget_evictions: int = 0
+    # planned prefetches and recomputes the guard left to their readers
+    # because they did not fit the budget
+    budget_skips: int = 0
+
+
+class BudgetExceededError(RuntimeError):
+    """The budget guard cannot keep a job within ``budget_bytes``: what
+    one operator must hold at once does not fit, even with everything
+    else swapped out."""
 
 
 # A compressed swap-in whose packed buffer holds at most this many bytes
@@ -659,20 +673,24 @@ class FxExecutor:
                 self.async_exec.inflight.pop(t.key, None)
                 self._retire_out(st, compressed, val)
 
-    def _hold_budget(self, incoming: int, keep=()) -> None:
+    def _hold_budget(self, incoming: int, keep=(),
+                     required: bool = True) -> bool:
         """Budget guard: keep the job's booked bytes plus ``incoming``
-        within ``budget_bytes``.  First wait for the swap-outs already
-        issued to land and retire them: the plan's model frees those copies
-        by its own clock, and a copy slower than that clock (operator
-        latencies are estimates) would otherwise hold a tensor's device
-        copy while the next allocation lands.  If that is not enough (a
-        plan whose own peak exceeds the slice, or a prefetch due before its
-        bytes are), swap out resident storages, the one read again last
-        first, never one of ``keep`` or one with a transfer under way;
-        their next readers swap them in passively.  Values never change:
-        a swap copies."""
+        within ``budget_bytes``; True when they fit.  First wait for the
+        swap-outs already issued to land and retire them: the plan's model
+        frees those copies by its own clock, and a copy slower than that
+        clock (operator latencies are estimates) would otherwise hold a
+        tensor's device copy while the next allocation lands.  If that is
+        not enough (a plan whose own peak exceeds the slice, or a prefetch
+        due before its bytes are), swap out resident storages, the one
+        read again last first, never one of ``keep``; their next readers
+        swap them in passively.  Values never change: a swap copies.
+        Where even that is not enough, a ``required`` booking (what the
+        current operator must hold at once) raises BudgetExceededError;
+        an optional one (a planned prefetch or recompute, which its reader
+        can do itself later) returns False and is not made."""
         if self.budget_bytes is None or not self._over(incoming):
-            return
+            return True
         issued = [t for t, _, _ in self._pending_out.values() if t.issued]
         if issued:
             t0 = _time.perf_counter()
@@ -689,6 +707,17 @@ class FxExecutor:
                                             stall, "budget")
         if self._over(incoming):
             self._evict(incoming, set(keep))
+        if not self._over(incoming):
+            return True
+        if not required:
+            return False
+        booked = self.accountant.job_bytes(self.ctx.job_id)
+        raise BudgetExceededError(
+            f"job {self.ctx.job_id} at operator {self._cur_idx}: "
+            f"{booked} B booked + {incoming} B incoming > budget "
+            f"{self.budget_bytes} B, with "
+            f"{sum(self.ctx.size_of(st) for st in keep if st in self.device)}"
+            f" B of it held by the operator's own tensors")
 
     def _over(self, incoming: int) -> bool:
         return (self.accountant.job_bytes(self.ctx.job_id) + incoming
@@ -708,15 +737,21 @@ class FxExecutor:
 
     def _evict(self, incoming: int, keep: Set[str]) -> None:
         """Swap out resident storages, the one read again last first,
-        until ``incoming`` more bytes fit the budget or none is left."""
-        busy = set(keep) | set(self._pending_out)
-        if self.async_exec is not None:
-            busy |= {k[3:] for k in self.async_exec.inflight
-                     if k.startswith("in:")}
-        for st in sorted((st for st in self.device if st not in busy),
+        until ``incoming`` more bytes fit the budget or none is left.  A
+        storage whose prefetch has been issued is waited for first (the
+        swap-out then reads the fetched value); one with a swap-out under
+        way is retiring already."""
+        inflight = self.async_exec.inflight if self.async_exec else {}
+        queued = {k[3:] for k, t in inflight.items()
+                  if k.startswith("in:") and not t.issued}
+        for st in sorted((st for st in self.device
+                          if st not in keep and st not in self._pending_out
+                          and st not in queued),
                          key=lambda st: (-self._next_read(st), st)):
             if not self._over(incoming):
                 return
+            if "in:" + st in inflight:
+                self.async_exec.wait("in:" + st)
             self._swap_out(st, sync=True)
             self._evicted.add(st)
             self.stats.budget_evictions += 1
@@ -732,19 +767,49 @@ class FxExecutor:
             self.ctx.host.discard(st)
             self.ctx.host_compressed.discard(st)
 
-    def _incoming_bytes(self, idx: int) -> int:
-        """Bytes operator ``idx`` books when it runs: its results, and
-        its inputs not on the device (swapped in or recomputed)."""
-        op = self.seq.operators[idx]
-        sts = {self._st(t) for t in op.inputs + op.outputs}
-        return sum(self.ctx.size_of(st) for st in sts
-                   if st not in self.device)
+    def _demand(self, inputs, outputs=()) -> Tuple[int, Set[str]]:
+        """What reading ``inputs`` and writing ``outputs`` books, and the
+        storages that must stay on the device meanwhile: each one not on
+        the device, and, for an input that will be recomputed (no host
+        copy, no prefetch in flight), its producer's inputs in turn."""
+        inflight = self.async_exec.inflight if self.async_exec else {}
+        need, keep = 0, set()
+        todo = [(t, True) for t in inputs] + [(t, False) for t in outputs]
+        while todo:
+            tid, read = todo.pop()
+            st = self._st(tid)
+            if st in keep:
+                continue
+            keep.add(st)
+            if st in self.device:
+                continue
+            need += self.ctx.size_of(st)
+            if (read and st not in self.host and tid in self.producer
+                    and "in:" + st not in inflight):
+                todo += [(t, True) for t in
+                         self.seq.operators[self.producer[tid]].inputs]
+        return need, keep
 
     def _queued_in_bytes(self) -> int:
         """Bytes the queued (not yet issued) prefetches book at issue."""
         return sum(self.ctx.size_of(t.key[3:])
                    for t in self.async_exec.queue
                    if t.key.startswith("in:") and t.key[3:] not in self.device)
+
+    def _hold_prefetches(self) -> None:
+        """Before the queued prefetches issue: evict for them, and leave
+        out the last queued ones that still do not fit (their readers swap
+        them in passively, under the guard)."""
+        q = self.async_exec.queue
+        while not self._hold_budget(self._queued_in_bytes(), required=False):
+            ins = [t for t in q if t.key.startswith("in:")]
+            if not ins:
+                # over the budget with nothing left to leave out: raises
+                self._hold_budget(0)
+                return
+            q.remove(ins[-1])
+            self.async_exec.inflight.pop(ins[-1].key, None)
+            self.stats.budget_skips += 1
 
     def _swap_in(self, st: str, passive: bool) -> bool:
         """Prefetch from host; returns False when there is nothing to fetch
@@ -884,7 +949,7 @@ class FxExecutor:
                 if self.budget_bytes is not None:
                     # a first iteration starts with every input on the
                     # device; the plan's steady state may park some
-                    self._hold_budget(self.ctx.size_of(st), {st})
+                    self._hold_budget(*self._demand((), (tid,)))
                 self._put_device(tid, val if val.device == self.dev
                                  else val.to(self.dev))
         # drop this frame's references: the stores now hold the inputs
@@ -892,6 +957,8 @@ class FxExecutor:
         flat.clear()
         val = None
         for n in lay.consts:
+            if self.budget_bytes is not None:
+                self._hold_budget(*self._demand((), (lay.tid[n],)))
             self._put_device(lay.tid[n], getattr(self.gm, n.target))
 
         measure = self.measure_latency or self.telemetry is not None
@@ -910,8 +977,7 @@ class FxExecutor:
             if self._held:
                 self._release_held()
             if self.budget_bytes is not None:
-                self._hold_budget(self._incoming_bytes(idx), {
-                    self._st(t) for t in op.inputs + op.outputs})
+                self._hold_budget(*self._demand(op.inputs, op.outputs))
             t0 = _time.perf_counter()
             for tid in op.inputs:
                 self._ensure_input(tid)
@@ -953,20 +1019,26 @@ class FxExecutor:
                 if ev.event_type is EventType.SWAP_OUT:
                     self._swap_out(ev.tensor_id, compressed=ev.compressed)
                 elif ev.event_type is EventType.SWAP_IN:
-                    if self.budget_bytes is not None \
-                            and self.async_exec is None:
-                        # a synchronous prefetch books at once
-                        self._hold_budget(self.ctx.size_of(st), {st})
+                    if (self.budget_bytes is not None
+                            and self.async_exec is None
+                            and not self._hold_budget(
+                                *self._demand((ev.tensor_id,)),
+                                required=False)):
+                        # a synchronous prefetch books at once; one that
+                        # does not fit is left to its reader
+                        self.stats.budget_skips += 1
+                        continue
                     self._swap_in(st, passive=False)
                 elif ev.event_type is EventType.RELEASE:
                     self.engine.record("release", self.ctx, st)
                     self._drop_storage(st)
                 elif ev.event_type is EventType.RECOMPUTE:
-                    if self.budget_bytes is not None:
-                        self._hold_budget(self.ctx.size_of(st), {
-                            self._st(t) for t in
-                            self.seq.operators[self.producer[
-                                ev.tensor_id]].inputs})
+                    if (self.budget_bytes is not None
+                            and not self._hold_budget(
+                                *self._demand((ev.tensor_id,)),
+                                required=False)):
+                        self.stats.budget_skips += 1
+                        continue
                     self.engine.record("recompute", self.ctx, st)
                     self._recompute(ev.tensor_id)
             # preemptive arbitration: splice a pending plan in at a safe
@@ -974,7 +1046,7 @@ class FxExecutor:
             self._maybe_hot_swap(idx)
             if self.async_exec is not None:
                 if self.budget_bytes is not None and self.async_exec.queue:
-                    self._hold_budget(self._queued_in_bytes())
+                    self._hold_prefetches()
                 self.async_exec.flush()
             if throttle is not None:
                 throttle.append(self._compute.record_event())
@@ -1021,6 +1093,8 @@ class FxExecutor:
             # dequantize on the device, then park the result on the host
             return self._to_host(self._host_fetch(st), compressed=False).data
         if st not in self.device:
+            if self.budget_bytes is not None:
+                self._hold_budget(*self._demand((self.layout.tid[o],)))
             self._ensure_input(self.layout.tid[o])
         return self._value(v)
 

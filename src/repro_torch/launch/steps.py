@@ -2,10 +2,17 @@
 
 * ``build_train_step(api, tcfg)`` returns
   ``(params, opt_state, batch) -> (params, opt_state, metrics)``: loss and
-  gradients (with gradient accumulation over ``microbatches``), then
-  AdamW with global-norm clipping.  The parameters of the module and the
-  optimizer state are updated IN PLACE and returned (the JAX step donates
-  them for the same effect).
+  gradients (with gradient accumulation over ``microbatches``, and each
+  block repeat checkpointed under ``remat_policy``, TENSILE's decisions,
+  ``core.integration.make_remat_policy``), optionally int8 error-feedback
+  gradient compression (``optim.compression``), then AdamW with
+  global-norm clipping.  The parameters of the module and the optimizer
+  state are updated IN PLACE and returned (the JAX step donates them for
+  the same effect).  With ``offload_opt_state`` the moments and master
+  copies live in pinned host memory between steps (the paper's Fig. 1(c)
+  across-iteration swap, which the reference's step makes on backends with
+  memory spaces): the step moves any still on the card there, and AdamW
+  fetches each leaf for its update.
 * ``build_functional_train_step(api, tcfg)`` returns the same step as a
   pure function over a flat parameter dict:
   ``(params, opt_state, batch) -> (new_params, new_opt_state, metrics)``
@@ -18,9 +25,8 @@
 
 PyTorch runs eagerly, so there is no jit; prefill and decode run under
 ``torch.inference_mode()``.  The port has no mesh, so there are no
-sharding rules; the JAX package's remat policies from TENSILE decisions,
-host-offloaded optimizer state and int8 gradient compression are not
-ported yet.
+sharding rules, and the compressed gradients are the reduced ones (the
+reference's compressed collective waits for the mesh).
 """
 from __future__ import annotations
 
@@ -28,9 +34,12 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.utils._pytree as pytree
 
+from ..core.integration import opt_state_placement
 from ..optim.adam import (AdamState, adamw_init, adamw_step, adamw_update,
                           global_norm)
+from ..optim.compression import ef_compress_grads
 
 
 @dataclasses.dataclass
@@ -38,8 +47,12 @@ class TrainStepConfig:
     learning_rate: float = 1e-4
     weight_decay: float = 0.01
     grad_clip_norm: Optional[float] = 1.0
-    grad_compression: Optional[str] = None      # None ("int8": not ported)
-    remat_policy: Optional[Callable] = None     # not ported
+    # fp32 master copies of bf16 parameters: the state the caller makes
+    # with ``opt_state_for(params, use_master=True)``
+    use_master: bool = False
+    grad_compression: Optional[str] = None      # None | "int8"
+    offload_opt_state: bool = False             # TENSILE across-iteration
+    remat_policy: Optional[Callable] = None     # from TENSILE decisions
     microbatches: int = 1                       # grad accumulation (peak/n)
 
 
@@ -49,13 +62,12 @@ def _grads(loss: torch.Tensor, named: Dict[str, torch.Tensor]):
 
 def build_train_step(api, tcfg: Optional[TrainStepConfig] = None):
     tcfg = tcfg or TrainStepConfig()
-    if tcfg.grad_compression is not None:
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} arrives with the "
-            f"training slice (int8 error-feedback compression)")
-    if tcfg.remat_policy is not None:
-        raise NotImplementedError(
-            "TENSILE remat policies arrive with the training slice")
+    if tcfg.grad_compression not in (None, "int8"):
+        raise ValueError(f"grad_compression={tcfg.grad_compression!r}: "
+                         f"None or 'int8'")
+
+    def loss_of(params, batch):
+        return api.loss(params, batch, remat_policy=tcfg.remat_policy)
 
     def train_step(params, opt_state: AdamState, batch):
         named = dict(params.named_parameters())
@@ -75,19 +87,23 @@ def build_train_step(api, tcfg: Optional[TrainStepConfig] = None):
                         mb = {k: x.reshape((n_mb, x.shape[0] // n_mb)
                                            + tuple(x.shape[1:]))[i]
                               for k, x in batch.items()}
-                        lm = api.loss(params, mb)
+                        lm = loss_of(params, mb)
                         for k, g in _grads(lm, named).items():
                             grads[k] += g.float()
                         loss = loss + lm.detach()
                     grads = {k: a / n_mb for k, a in grads.items()}
                     loss = loss / n_mb
                 else:
-                    loss = api.loss(params, batch)
+                    loss = loss_of(params, batch)
                     grads = _grads(loss, named)
                     loss = loss.detach()
         finally:
             for p in named.values():
                 p.requires_grad_(False)
+        if tcfg.grad_compression == "int8":
+            grads, opt_state = ef_compress_grads(grads, opt_state)
+        if tcfg.offload_opt_state:
+            opt_state = opt_state_to_host(opt_state)
         _, new_opt = adamw_update(
             named, grads, opt_state, lr=tcfg.learning_rate,
             weight_decay=tcfg.weight_decay,
@@ -172,3 +188,21 @@ def opt_state_for(params, *, use_master: bool = False,
         named = {k: torch.empty(p.shape, dtype=p.dtype, device="meta")
                  for k, p in named.items()}
     return adamw_init(named, use_master=use_master)
+
+
+def opt_state_to_host(opt_state: AdamState) -> AdamState:
+    """The state with its moments and master copies in pinned host memory
+    (``opt_state_placement``): a leaf already off the card stays as it
+    is; on the CPU nothing moves."""
+    def place(tree):
+        return {k: opt_state_placement(t, host=True) for k, t in tree.items()}
+    master = place(opt_state.master) if opt_state.master != () else ()
+    return opt_state._replace(mu=place(opt_state.mu), nu=place(opt_state.nu),
+                              master=master)
+
+
+def offloaded_bytes(opt_state: AdamState) -> int:
+    """Bytes the TENSILE plan parks on the host between steps (moments and
+    master copies)."""
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(
+        (opt_state.mu, opt_state.nu, opt_state.master)))

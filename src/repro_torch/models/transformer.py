@@ -116,11 +116,10 @@ def _backbone(params: TransformerLM, tokens: torch.Tensor, cfg, *,
               extra_embeds: Optional[torch.Tensor] = None,
               remat_policy=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Everything up to (and including) the final norm: (hidden, aux).
-    With ``cfg.remat == "block"`` and autograd on, each repeat of the block
-    is checkpointed (the reference's ``jax.checkpoint`` of the scan body)."""
-    if remat_policy is not None:
-        raise NotImplementedError(
-            "TENSILE remat policies arrive with the training slice")
+    With autograd on, each repeat of the block is checkpointed (the
+    reference's ``jax.checkpoint`` of the scan body) under ``remat_policy``
+    (``core.integration.RematPolicy``: selective checkpointing through its
+    ``context_fn``), else, with ``cfg.remat == "block"``, wholly."""
     x = embed_tokens(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -136,10 +135,13 @@ def _backbone(params: TransformerLM, tokens: torch.Tensor, cfg, *,
     def body(x, aux, r):
         return _apply_superblock(blocks.at(r), x, positions, cfg, aux)
 
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    kw = {} if remat_policy is None else {
+        "context_fn": remat_policy.context_fn}
+    remat = torch.is_grad_enabled() and (remat_policy is not None
+                                         or cfg.remat == "block")
     for r in range(cfg.n_repeats):
         if remat:
-            x, aux = checkpoint(body, x, aux, r, use_reentrant=False)
+            x, aux = checkpoint(body, x, aux, r, use_reentrant=False, **kw)
         else:
             x, aux = body(x, aux, r)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux

@@ -9,8 +9,15 @@ passes flat dicts keyed by the parameter's dotted name
 master copies IN PLACE (the JAX train step donates those buffers for the
 same effect) and return them.  ``adamw_step`` is the pure form, as the JAX
 ``adamw_update``: same arithmetic, new tensors out, so a captured step has
-outputs that alias its inputs by position.  The reference's error-feedback
-residual (``ef``, for int8 grad compression) is not ported yet.
+outputs that alias its inputs by position.  ``ef`` holds the error-feedback
+residual of int8 gradient compression (``optim.compression``).
+
+Moments and master copies may live in pinned host memory between steps
+(``core.integration.opt_state_placement``, the paper's Fig. 1(c)
+across-iteration swap): ``adamw_update`` fetches each such leaf to its
+parameter's device for the leaf's update, writes it back, and returns once
+the host copies are written; the arithmetic runs on the same device either
+way, so the result is the same bit for bit.
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ class AdamState(NamedTuple):
     mu: Any                          # 1st moments, params' structure
     nu: Any                          # 2nd moments
     master: Any                      # fp32 masters or ()
+    ef: Any = ()                     # fp32 error-feedback residual or ()
 
 
-def adamw_init(params: Any, *, use_master: bool = False) -> AdamState:
+def adamw_init(params: Any, *, use_master: bool = False,
+               grad_compression: bool = False) -> AdamState:
     leaves = pytree.tree_leaves(params)
     device = leaves[0].device if leaves else None
 
@@ -40,8 +49,9 @@ def adamw_init(params: Any, *, use_master: bool = False) -> AdamState:
     nu = pytree.tree_map(zeros, params)
     master = (pytree.tree_map(lambda p: p.detach().float().clone(), params)
               if use_master else ())
+    ef = pytree.tree_map(zeros, params) if grad_compression else ()
     return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
-                     mu=mu, nu=nu, master=master)
+                     mu=mu, nu=nu, master=master, ef=ef)
 
 
 def _prologue(grads: Any, state: AdamState, b1: float, b2: float,
@@ -57,14 +67,21 @@ def _prologue(grads: Any, state: AdamState, b1: float, b2: float,
     return step, scale, 1.0 - b1 ** stepf, 1.0 - b2 ** stepf
 
 
-def _leaf(p, g, m, v, pm, scale, bc1, bc2, lr, b1, b2, eps, weight_decay):
+def _leaf(p, g, m, v, pm, scale, bc1, bc2, lr, b1, b2, eps, weight_decay,
+          scratch: bool = False):
     """One leaf's AdamW arithmetic in fp32: ``(new, m32, v32)``, with
-    ``pm`` the fp32 master copy of ``p`` or None."""
+    ``pm`` the fp32 master copy of ``p`` or None.  With ``scratch`` the
+    fp32 moments ``m`` and ``v`` are copies that may be overwritten: the
+    same operations run in their memory."""
     g32 = g.float()
     if scale is not None:
         g32 = g32 * scale
-    m32 = b1 * m.float() + (1 - b1) * g32
-    v32 = b2 * v.float() + (1 - b2) * g32 * g32
+    if scratch:
+        m32 = m.mul_(b1).add_((1 - b1) * g32)
+        v32 = v.mul_(b2).add_((1 - b2) * g32 * g32)
+    else:
+        m32 = b1 * m.float() + (1 - b1) * g32
+        v32 = b2 * v.float() + (1 - b2) * g32 * g32
     base = (p if pm is None else pm).float()
     new = base - lr * ((m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
                        + weight_decay * base)
@@ -79,19 +96,30 @@ def adamw_update(params: Tree, grads: Tree, state: AdamState, *,
                  ) -> Tuple[Tree, AdamState]:
     """One AdamW step.  Updates ``params``, ``state.mu``, ``state.nu`` and
     ``state.master`` in place; returns ``(params, new_state)`` with the
-    step advanced."""
+    step advanced.  A moment or master leaf off its parameter's device
+    (pinned host memory) is fetched for the leaf's update and written
+    back."""
     step, scale, bc1, bc2 = _prologue(grads, state, b1, b2, grad_clip_norm)
     use_master = state.master != ()
+    fetched = None
     for name, p in params.items():
-        m, v = state.mu[name], state.nu[name]
-        new, m32, v32 = _leaf(p, grads[name], m, v,
-                              state.master[name] if use_master else None,
-                              scale, bc1, bc2, lr, b1, b2, eps, weight_decay)
-        m.copy_(m32)
-        v.copy_(v32)
+        kept = [state.mu[name], state.nu[name]]
         if use_master:
-            state.master[name].copy_(new)
+            kept.append(state.master[name])
+        m, v, pm = [t.to(p.device, non_blocking=True) for t in kept] + (
+            [] if use_master else [None])
+        if m is not kept[0]:
+            fetched = p.device
+        # a fetched moment is the leaf's scratch: no second copy on the card
+        new, m32, v32 = _leaf(p, grads[name], m, v, pm, scale, bc1, bc2,
+                              lr, b1, b2, eps, weight_decay,
+                              scratch=m is not kept[0])
+        for dst, val in zip(kept, (m32, v32, new)):
+            dst.copy_(val, non_blocking=True)
         p.copy_(new)
+    if fetched is not None:
+        # the host copies are the state: complete before anyone reads them
+        torch.cuda.current_stream(fetched).synchronize()
     return params, state._replace(step=step)
 
 
@@ -122,7 +150,7 @@ def adamw_step(params: Any, grads: Any, state: AdamState, *,
     master = pytree.tree_unflatten(new_pm, spec) if use_master else ()
     return pytree.tree_unflatten(new_p, spec), AdamState(
         step=step, mu=pytree.tree_unflatten(new_m, spec),
-        nu=pytree.tree_unflatten(new_v, spec), master=master)
+        nu=pytree.tree_unflatten(new_v, spec), master=master, ef=state.ef)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

@@ -562,6 +562,52 @@ def test_budget_guard_holds_the_slice_and_the_values(mlp, plan, async_swap):
     assert _equal(out2, ref2)
 
 
+def test_budget_guard_evicts_landed_prefetches_for_an_operator():
+    """A plan whose operator needs more than the guard can evict from the
+    storages it was not fetching: the multi-job test's job (the 64-256-
+    256-8 MLP, batch 16, seed 1) at 0.6 of its unscheduled peak, planned
+    by ``tensile+autoscale`` over latencies drawn from numpy seed 25 (each
+    the cost model's times 10**U(0, 3): a controller's drift replan over
+    measured latencies of a loaded host).  At operator 82 the op holds
+    786,432 B of its own and two landed prefetches 524,288 B; the guard
+    once skipped every storage with a prefetch in flight, and the ledger
+    ran 68,317 B over its 1,242,403 B.  It now waits for such a prefetch
+    and swaps it out: the ledger stays within the slice and the outputs
+    are the unscheduled run's bit for bit."""
+    sizes, batch = (64, 256, 256, 8), 16
+    step, params, opt, data = make_mlp(sizes, batch, seed=1, device="cpu")
+    seq, gm = tc.capture_train_step(step, params, opt, data, job_id="j1",
+                                    cost_model=tc.CostModel(CALIB))
+    free = tc.FxExecutor(gm, seq, None)
+    unsched = free.run(params, opt, data)
+    cap = int(0.6 * free.accountant.peak)
+    rng = np.random.default_rng(25)
+    seq.set_latencies([op.latency * f for op, f in zip(
+        seq.operators, 10.0 ** rng.uniform(0, 3, len(seq.operators)))])
+    pipe = tc.build_pipeline("tensile+autoscale", profile=PROFILE,
+                             config=tc.SchedulerConfig())
+    sched = tc.MemoryScheduler(PROFILE, tc.SchedulerConfig(), pipeline=pipe)
+    sched.register_job(seq)
+    plan = sched.schedule(["j1"], budgets={"j1": cap}).plans["j1"]
+    assert plan.planned_peak_bytes > cap
+    ex = tc.FxExecutor(gm, seq, plan, async_swap=True, budget_bytes=cap,
+                       engine=tc.MemoryEngine(PROFILE))
+    out = ex.run(params, opt, data)
+    assert ex.stats.budget_evictions > 0
+    assert ex.accountant.peak <= cap
+    assert _equal(out, unsched)
+
+
+def test_budget_guard_raises_where_an_operator_cannot_fit(mlp):
+    """A slice smaller than what one operator must hold at once cannot be
+    kept: the guard says so rather than run over it."""
+    ex = tc.FxExecutor(mlp["gm"], mlp["seq"], mlp["plan"], async_swap=True,
+                       engine=tc.MemoryEngine(PROFILE), budget_bytes=1)
+    with pytest.raises(tc.BudgetExceededError, match="budget 1 B"):
+        ex.run(*mlp["args"])
+    assert ex.accountant.peak <= 1
+
+
 def _state_of(mlp, outs):
     """The step's arguments for the next iteration: the parameters and
     moments ``outs`` holds, the same batch."""

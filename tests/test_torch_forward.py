@@ -366,17 +366,23 @@ def test_microbatched_step_matches_full_batch():
 
 
 def test_unported_options_raise():
+    """The options that raised until the training launcher's slice are
+    ported: int8 gradient compression and a remat policy build a step (an
+    unknown compression still raises), and the forward pass takes a policy
+    (it checkpoints, and the logits are the same)."""
+    from repro_torch.core.integration import RematPolicy
     _, tcfg = _cfgs()
     api = get_model(tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    policy = RematPolicy(frozenset())
+    steps.build_train_step(api, steps.TrainStepConfig(
+        grad_compression="int8"))
+    with pytest.raises(ValueError, match="grad_compression"):
         steps.build_train_step(api, steps.TrainStepConfig(
-            grad_compression="int8"))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        steps.build_train_step(api, steps.TrainStepConfig(
-            remat_policy=lambda *a: True))
+            grad_compression="fp8"))
+    steps.build_train_step(api, steps.TrainStepConfig(remat_policy=policy))
     model = api.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        transformer.forward(model, torch.zeros((1, 4), dtype=torch.int32),
-                            tcfg, remat_policy=lambda *a: True)
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    got, _ = transformer.forward(model, tokens, tcfg, remat_policy=policy)
+    assert torch.equal(got, transformer.forward(model, tokens, tcfg)[0])
     abstract = steps.opt_state_for(model, abstract=True)
     assert all(t.device.type == "meta" for t in abstract.mu.values())

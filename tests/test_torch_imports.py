@@ -15,8 +15,8 @@ from repro_torch.configs import get_config
 from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-# the TENSILE loop's, the SSM slice's, the multi-job runtime's and the
-# experience plane's modules:
+# the TENSILE loop's, the SSM slice's, the multi-job runtime's, the
+# experience plane's and the training launcher's modules:
 # each must be among those walked and checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
@@ -26,7 +26,9 @@ TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.graph_capture", "core.executor", "kernels.offload_quant",
     "service.workloads", "optim.adam", "models.ssm", "kernels.ssd_scan",
     "core.multiplexer", "service.jobspec", "obs.events", "core.experience",
-    "obs.metrics", "obs.drift")]
+    "obs.metrics", "obs.drift", "core.integration", "optim.compression",
+    "data.pipeline", "checkpoint.manager", "runtime.stragglers",
+    "runtime.fault_tolerance", "launch.train")]
 
 
 def test_port_and_chip_smoke_import_no_jax():
