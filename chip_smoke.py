@@ -54,7 +54,8 @@ random weights from seed 0):
    (``quant_cta_sweep``); the
    quickstart MLP captured, planned and executed, its executor peak and
    decision trace equal to the simulator's (``tensile_mlp``); then the
-   full-width train step (B 4, S 1024, no block remat) captured on fake
+   full-width train step (B 4, S 1024, no block remat; TENSILE_LAYERS of
+   the 22 layers) captured on fake
    tensors, its operator latencies measured by one unscheduled run, planned
    with the compressed pass first under the tightest budget that plan
    reaches, and executed for 2 iterations with swaps to pinned host memory
@@ -116,7 +117,7 @@ random weights from seed 0):
    its model misjudges the card); the predictor's loss falls and its R² is
    finite.
 7. The training launcher (``train_launcher``, in a fresh process), B 4,
-   S 1024: the launcher's train step captured on fake tensors and
+   S 1024, TENSILE_LAYERS of the 22 layers: the launcher's train step captured on fake tensors and
    planned by ``schedule_for_budget`` at LAUNCHER_BUDGET of its planned
    peak; under ``make_remat_policy`` of those decisions the loss and
    gradients must equal the block remat step's bit for bit; one step with
@@ -133,6 +134,25 @@ random weights from seed 0):
    with the state of an unbroken run (sha256); then
    ``launch.train.main`` itself (``--full``, the same budget, int8
    gradients) for LAUNCHER_MAIN_STEPS steps.
+8. The MoE slice (``moe``, in a fresh process): reduced fp32 Moonlight,
+   Kimi-K2 and Jamba (the SSD and flash kernels in one hybrid block),
+   decode, forward and train step card-vs-CPU with every MoE layer's
+   expert choices equal on both; the flash kernel at Moonlight's and
+   Kimi-K2's (D 112) attention shapes and the KV kernels at Moonlight's
+   cache leaves against their plain versions; Moonlight-16B-A3B at full
+   width and depth (48 layers, 64 experts top-6, 56.1 GB of bf16
+   weights) served unbudgeted and under a KV budget (golden tokens, no
+   OOM, evictions, ceil(leaves / 16) KV launches per batched transfer and
+   kernel) and prefilled at B 4 x S 2048 through the flash kernel (48
+   launches; each layer within the bf16 per-layer bound; fp32 at
+   MOE_TRAIN_LAYERS layers within 1e-3 end to end with equal expert
+   choices); 4 train steps at MOE_TRAIN_LAYERS layers, whose loss must
+   fall, and that step captured, planned by ``tensile`` at MOE_BUDGET of
+   its planned peak and run on ``FxExecutor`` bit-identical to the
+   unscheduled step, its allocator within 5 % of its ledger, with
+   swap-outs; Kimi-K2's dense prefix layer and one MoE layer with its
+   shared expert at full width: a B 1 x S 2048 prefill through the flash
+   kernel at D 112 and 4 decode steps.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -200,6 +220,7 @@ from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
                                      build_prefill_step, build_train_step,
                                      offloaded_bytes, opt_state_for,
                                      opt_state_to_host)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
@@ -296,6 +317,10 @@ MULTI_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 2, 1)}
 # and the controller's replans grow with the operator count; the
 # experience phases keep 22, where their warm boot is gated)
 CONTROLLER_LAYERS = 11
+# tensile_train and train_launcher's own steps at full width and this many
+# of the 22 layers (all 22 until the MoE phase joined the script, whose
+# time limit now holds it too; ``launch.train.main --full`` keeps all 22)
+TENSILE_LAYERS = 11
 MULTI_SLICE = 0.85
 MULTI_SERVE_SLICE = 0.5
 MULTI_PIPELINE = "tensile+autoscale"
@@ -424,6 +449,31 @@ ODD_LEAVES = [((3, 5, 7, 11), torch.bfloat16, 1),
 # gathered rows of one batched transfer (3 slots of 75.5 MB state at most),
 # and no copy of a whole cache leaf (302 MB)
 SSM_SWAP_PEAK_GAP = 160_000_000
+# the MoE phase (``moe``, a fresh process): Moonlight-16B-A3B at full width,
+# served and prefilled at its 48 layers and trained at MOE_TRAIN_LAYERS of
+# them (parameters, gradients and fp32 moments of all 48 need more than
+# 330 GB), its train step captured and run under a ``tensile`` plan at
+# MOE_BUDGET of its planned peak; Kimi-K2 at full width and KIMI_LAYERS of
+# its 61 (the dense prefix layer and one MoE layer with a shared expert);
+# and the reduced card-vs-CPU checks of MOE_SMALL_ARCHS
+MOE_ARCH, KIMI_ARCH = "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b"
+MOE_SMALL_ARCHS = (MOE_ARCH, KIMI_ARCH, "jamba-1.5-large-398b")
+MOE_TRAIN_LAYERS, KIMI_LAYERS = 4, 2
+MOE_BUDGET = 0.7
+# Moonlight's prefill is gated per layer in bf16 and end to end in fp32 at
+# MOE_TRAIN_LAYERS layers: a bf16 rounding that flips one expert choice
+# changes that token's whole FFN output, so no end-to-end bf16 bound over
+# 48 routed layers says anything about the kernel (it is printed)
+MOE_PREFILL_REL_TOL = {"bf16_layer": PREFILL_REL_TOL["bf16_layer"]}
+# the attention of Moonlight's prefill (16 heads of 128, MHA) and of
+# Kimi-K2's (B 1 x S 2048, 64 query and 8 kv heads of 112, which the
+# tensor-core path pads to 128)
+FLASH_MOONLIGHT = (PREFILL_B, PREFILL_S, PREFILL_S, 16, 16, 128, True,
+                   torch.bfloat16, 0)
+FLASH_KIMI = (1, PREFILL_S, PREFILL_S, 64, 8, 112, True, torch.bfloat16, 0)
+# Moonlight's two slotted cache leaves (k, v) at the serve's shape
+MOONLIGHT_LEAVES = [((48, MAX_SEQUENCES, MAX_LEN, 16, 128), torch.bfloat16,
+                     1)] * 2
 # the device kernels each prefill kernel's wrapper launches, by name
 KERNEL_NAMES = {fa.flash_attention_fwd: ("flash_fwd",),
                 ss.ssd_intra_chunk_fwd: ("ssd_fwd",)}
@@ -735,26 +785,71 @@ def time_leaves(spec, k: int) -> dict:
     return res
 
 
-def check_decode_on_small_input(arch: str = ARCH) -> None:
-    """Reduced ``arch`` in fp32: the card's decode steps agree with the
-    CPU's on the same weights, tokens and cache (atol = rtol = 1e-4, the
-    port's CPU parity tolerance; matmuls run in full fp32, TF32 is off)."""
-    cfg = get_config(arch).reduced()
-    cpu, card = small_models(cfg)
-    api_c, api_g = get_model(cfg, "cpu"), get_model(cfg, "cuda")
-    cache_c, cache_g = api_c.init_cache(2, 8), api_g.init_cache(2, 8)
+def decode_steps(cfg, params, device: str) -> tuple:
+    """6 decode steps of ``cfg`` on ``params`` from an empty cache (B 2,
+    tokens from a CPU generator seeded 1): each step's logits on the host
+    and its MoE routes (``recording_routes``)."""
+    api = get_model(cfg, device)
+    cache = api.init_cache(2, 8)
     tok = torch.Generator().manual_seed(1)
+    logits, routes = [], []
     for i in range(6):
         t = torch.randint(0, cfg.vocab_size, (2, 1), generator=tok)
-        with torch.inference_mode():
-            lc, _ = api_c.decode(cpu, {"tokens": t}, cache_c, i)
-            lg, _ = api_g.decode(card, {"tokens": t.cuda()}, cache_g, i)
-        if not torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4):
+        with torch.inference_mode(), recording_routes() as r:
+            lg, _ = api.decode(params, {"tokens": t.to(device)}, cache, i)
+        logits.append(lg.cpu())
+        routes.append(r)
+    return logits, routes
+
+
+def tolerance_share(got: torch.Tensor, want: torch.Tensor,
+                    tol: float) -> float:
+    """max |got - want| / (tol + tol |want|): at most 1 within ``allclose``
+    at rtol = atol = ``tol``."""
+    return float(((got.double() - want.double()).abs()
+                  / (tol + tol * want.double().abs())).max())
+
+
+def widened(params, cfg):
+    """``params`` in float64 on the same device, and ``cfg`` in float64."""
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    wide = TransformerLM(cfg, device="meta")
+    wide.load_state_dict({k: v.double() for k, v
+                          in params.state_dict().items()}, assign=True)
+    return wide, cfg
+
+
+def check_decode_on_small_input(arch: str = ARCH) -> None:
+    """Reduced ``arch``: the card's decode steps agree with the CPU's on
+    the same weights, tokens and cache (atol = rtol = 1e-4, the port's CPU
+    parity tolerance; matmuls run in full fp32, TF32 is off), each MoE
+    layer's expert choices first, exactly.  The steps run in fp32 unless
+    the CPU's own fp32 steps lie further than half the tolerance from the
+    same steps in float64 (``own_share`` over 0.5): two fp32 runs may then
+    differ by rounding alone by more than the tolerance, and both devices
+    run in float64 (no kernel lies on the decode path).  Reduced Jamba's
+    MoE layers, drawn at the reference's fan-in (the expert count), lift
+    its residual stream to about 1,000."""
+    cfg = get_config(arch).reduced()
+    cpu, card = small_models(cfg)
+    want, r_cpu = decode_steps(cfg, cpu, "cpu")
+    wide, cfg64 = widened(cpu, cfg)
+    exact, r_exact = decode_steps(cfg64, wide, "cpu")
+    own = max(tolerance_share(w, e, 1e-4) for w, e in zip(want, exact))
+    if own > 0.5:
+        cpu, (card, cfg), want, r_cpu = wide, widened(card, cfg), exact, \
+            r_exact
+    got, r_card = decode_steps(cfg, card, "cuda")
+    for i, (lg, lc) in enumerate(zip(got, want)):
+        compare_routes(r_cpu[i], r_card[i], f"reduced {arch} decode step "
+                       f"{i}")
+        if not torch.allclose(lg, lc, atol=1e-4, rtol=1e-4):
             raise AssertionError(
                 f"decode step {i}: card and CPU differ by "
-                f"{max_abs_err(lg.cpu(), lc)}")
-    log(f"[check] reduced fp32 {arch} decode: card == CPU within 1e-4 over "
-        f"6 steps")
+                f"{max_abs_err(lg, lc)}")
+    log(f"[check] reduced {cfg.dtype} {arch} decode: card == CPU within "
+        f"1e-4 over 6 steps (the CPU's fp32 steps against float64: "
+        f"{own:.3f} of the tolerance)")
 
 
 def small_models(cfg):
@@ -804,6 +899,22 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
                       gen_len=GEN_LEN)
 
     runs = {}
+    # the KV launches of each batched save and restore, by the wrappers'
+    # counts: (method, gather launches, scatter launches) -> calls
+    transfers = collections.Counter()
+
+    def counting(method):
+        fn = getattr(eng, method)
+
+        def call(states):
+            g0 = kbc.kv_block_gather.launches
+            s0 = kbc.kv_block_scatter.launches
+            out = fn(states)
+            transfers[(method, kbc.kv_block_gather.launches - g0,
+                       kbc.kv_block_scatter.launches - s0)] += 1
+            return out
+        return call
+
     for name in ("golden", "budgeted"):
         step_ms.clear()
         budget = (None if name == "golden"
@@ -819,6 +930,8 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
                                                   "kv_block_gather", shapes)
             serving_engine.kv_block_scatter = _spy(kbc.kv_block_scatter,
                                                    "kv_block_scatter", shapes)
+            eng._save_slots = counting("_save_slots")
+            eng._restore_slots = counting("_restore_slots")
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -831,6 +944,8 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
         finally:
             serving_engine.kv_block_gather = kbc.kv_block_gather
             serving_engine.kv_block_scatter = kbc.kv_block_scatter
+            eng.__dict__.pop("_save_slots", None)
+            eng.__dict__.pop("_restore_slots", None)
         wall = time.perf_counter() - t
         launches = {"kv_block_gather": kbc.kv_block_gather.launches,
                     "kv_block_scatter": kbc.kv_block_scatter.launches}
@@ -865,18 +980,32 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
         raise AssertionError(f"peak {rep.peak_bytes} > budget "
                              f"{bud['budget']}")
     n_slotted = len(eng._slotted()[1])
+    groups = -(-n_slotted // kbc.MAX_LEAVES)
+    # a batched save gathers and a batched restore gathers and scatters
+    # every slotted leaf, one launch per group of MAX_LEAVES leaves; a
+    # transfer of one slot takes the per-slot path and launches nothing
+    allowed = {"_save_slots": {(0, 0), (groups, 0)},
+               "_restore_slots": {(0, 0), (groups, groups)}}
+    bad = [k for k in transfers if k[1:] not in allowed[k[0]]]
+    batched = {m: sum(c for k, c in transfers.items()
+                      if k[0] == m and k[1]) for m in allowed}
     for name, n in bud["launches"].items():
         calls = sum(c for key, c in bud["shapes"].items() if key[0] == name)
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the serve path")
-        if n != calls or any(len(key[1]) != n_slotted
+        if n != calls or any(len(key[1]) > kbc.MAX_LEAVES
                              for key in bud["shapes"]):
-            raise AssertionError(f"{name}: {n} launches for {calls} calls; "
-                                 "a batched transfer must move all "
-                                 f"{n_slotted} slotted leaves in one launch")
+            raise AssertionError(f"{name}: {n} launches for {calls} calls "
+                                 f"of at most {kbc.MAX_LEAVES} leaves each")
+    if bad or not all(batched.values()):
+        raise AssertionError(f"batched transfers made {dict(transfers)} "
+                             f"(method, gather, scatter) launches: each must "
+                             f"make ceil({n_slotted}/{kbc.MAX_LEAVES}) = "
+                             f"{groups} per kernel it runs")
     log(f"[serve] budgeted tokens == golden tokens for all {N_REQUESTS} "
-        f"requests; launches {bud['launches']} (one per batched transfer, "
-        f"{n_slotted} leaves each); max_memory_allocated over the golden "
+        f"requests; launches {bud['launches']} ({groups} per kernel and "
+        f"batched transfer, {n_slotted} leaves in all; batched saves and "
+        f"restores {batched}); max_memory_allocated over the golden "
         f"run {bud['max_memory_allocated'] - gold['max_memory_allocated']} "
         f"B; calls {dict(bud['shapes'])}")
     eng._step = plain_step
@@ -914,17 +1043,19 @@ def profile_restore(arch: str) -> dict:
                           top=12)
     launches = (kbc.kv_block_gather.launches - g0,
                 kbc.kv_block_scatter.launches - s0)
-    if launches != (1, 1):
+    n_slotted = len(eng._slotted()[1])
+    groups = -(-n_slotted // kbc.MAX_LEAVES)
+    if launches != (groups, groups):
         raise AssertionError(f"a batched restore made {launches} gather and "
-                             "scatter launches, not one each")
-    # a gather, a scatter and one copy per slot and slotted leaf
-    expected = 2 + len(states) * len(eng._slotted()[1])
+                             f"scatter launches, not {groups} each")
+    # the gathers, the scatters and one copy per slot and slotted leaf
+    expected = 2 * groups + len(states) * n_slotted
     if prof["device_kernels"] != expected \
-            or prof["named"]["copy_tiles"][0] != 2:
+            or prof["named"]["copy_tiles"][0] != 2 * groups:
         raise AssertionError(f"the restore's profile holds "
                              f"{prof['device_kernels']} device events "
                              f"({prof['named']['copy_tiles'][0]} KV "
-                             f"kernels), not {expected} (2)")
+                             f"kernels), not {expected} ({2 * groups})")
     out = {"events_span_ms": span_ms, "wall_ms": prof["wall_ms"],
            "device_busy_ms": prof["device_busy_ms"],
            "device_events": prof["device_kernels"],
@@ -998,14 +1129,15 @@ def flash_inputs(shape, seed: int):
     return draw((b, sq, h, d)), draw((b, skv, kvh, d)), draw((b, skv, kvh, d))
 
 
-def check_flash() -> dict:
-    """The flash kernel against ``flash_attention_ref`` on the card, at the
-    reference's sweep, its bf16 twins and the prefill's shape, within the
-    reference's tolerances (2e-5 fp32, 2e-2 bf16, as ``allclose`` rtol =
-    atol); a second call on the same inputs must give the same bits.
-    Returns the largest absolute difference per shape."""
+def check_flash(shapes=None) -> dict:
+    """The flash kernel against ``flash_attention_ref`` on the card, at
+    ``shapes`` (default: the reference's sweep, its bf16 twins and the
+    prefill's shape), within the reference's tolerances (2e-5 fp32, 2e-2
+    bf16, as ``allclose`` rtol = atol); a second call on the same inputs
+    must give the same bits.  Returns the largest absolute difference per
+    shape."""
     errs = {}
-    for shape in FLASH_SWEEP + [FLASH_PREFILL]:
+    for shape in shapes or FLASH_SWEEP + [FLASH_PREFILL]:
         causal, dtype, window = shape[6], shape[7], shape[8]
         q, k, v = flash_inputs(shape, 0)
         with torch.inference_mode():
@@ -1266,14 +1398,15 @@ def ssd_device_ms() -> dict:
 
 
 def prefill(eng, kernel=fa.flash_attention_fwd, mix=_attention_mix,
-            tols=PREFILL_REL_TOL) -> dict:
+            tols=PREFILL_REL_TOL, fp32: bool = True) -> dict:
     """Full-width prefill through ``build_prefill_step`` with the kernel
     switch (``use_flash_kernel``) on: B x S tokens from numpy seed 0 on the
     serve phase's weights.  Gates the logits' shape and finiteness, one
     launch of ``kernel`` per layer per forward, and agreement with the same
     forward on the plain path (``attend_full``, since S <= 2 * attn_chunk,
     or the plain chunked SSD), end to end and per layer (``mix`` is the
-    layer's mixer), within ``tols``."""
+    layer's mixer), within ``tols`` (keys missing there are printed, not
+    gated); with ``fp32``, also the whole model widened to fp32."""
     cfg = dataclasses.replace(eng.cfg, use_flash_kernel=True)
     step = build_prefill_step(get_model(cfg, "cuda"))
     plain_step = build_prefill_step(get_model(eng.cfg, "cuda"))
@@ -1305,7 +1438,8 @@ def prefill(eng, kernel=fa.flash_attention_fwd, mix=_attention_mix,
              "bf16_layer": check_layers(eng.params, eng.cfg, batch["tokens"],
                                         mix)}
     del logits, plain
-    agree["fp32"] = prefill_fp32(eng, batch)
+    if fp32:
+        agree["fp32"] = prefill_fp32(eng, batch)
     log(f"[prefill] {cfg.name}: kernel vs plain path, max |diff| / max "
         f"|ref|: " + json.dumps(agree))
     for key, tol in tols.items():
@@ -1337,15 +1471,24 @@ def prefill(eng, kernel=fa.flash_attention_fwd, mix=_attention_mix,
 
 
 def rel_max_diff(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.float() - want.float()).abs().max()
-                 / want.float().abs().max())
+    """max |got - want| / max |want|, one slice of the leading axis at a
+    time (full-width logits are gigabytes)."""
+    diff = max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+    return diff / max(float(w.float().abs().max()) for w in want)
 
 
 def check_layers(params, cfg, tokens, mix=_attention_mix) -> float:
-    """Each layer's mixer (``mix``) on the hidden state the kernel forward
-    feeds it, through the kernel and through the plain path: the largest
-    relative difference over the layers."""
+    """Each layer's mixer (``mix``), prefix layers first, on the hidden
+    state the kernel forward feeds it, through the kernel and through the
+    plain path: the largest relative difference over the layers."""
     flash_cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    layers = [(params[f"prefix{i}"], spec)
+              for i, spec in enumerate(cfg.prefix)]
+    for r in range(cfg.n_repeats):
+        rep = params["blocks"].at(r)
+        layers += [(rep[f"layer{i}"], spec)
+                   for i, spec in enumerate(cfg.block)]
     worst = 0.0
     with torch.inference_mode():
         x = embed_tokens(params["embed"], tokens).to(getattr(torch,
@@ -1354,15 +1497,12 @@ def check_layers(params, cfg, tokens, mix=_attention_mix) -> float:
         pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b,
                                                                         s)
         aux = torch.zeros((), device=x.device)
-        for r in range(cfg.n_repeats):
-            rep = params["blocks"].at(r)
-            for i, spec in enumerate(cfg.block):
-                p = rep[f"layer{i}"]
-                h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-                worst = max(worst, rel_max_diff(mix(p, h, pos, flash_cfg),
-                                                mix(p, h, pos, cfg)))
-                x, aux = transformer._apply_layer(p, spec, x, pos, flash_cfg,
-                                                  aux)
+        for p, spec in layers:
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            worst = max(worst, rel_max_diff(mix(p, h, pos, flash_cfg),
+                                            mix(p, h, pos, cfg)))
+            x, aux = transformer._apply_layer(p, spec, x, pos, flash_cfg,
+                                              aux)
     return worst
 
 
@@ -1383,24 +1523,38 @@ def prefill_fp32(eng, batch) -> float:
     return out
 
 
-def check_forward_on_small_input(arch: str = ARCH,
-                                 kernel=fa.flash_attention_fwd) -> None:
-    """Reduced ``arch`` in fp32: the card's forward through the kernel
-    agrees with the CPU's plain forward on the same weights and tokens at
-    5e-4 (the reference's tolerance for the kernel inside the model,
-    tests/test_kernels.py:96-115)."""
+def mixer_counts(cfg) -> dict:
+    """Launches of each prefill kernel in one forward of ``cfg``: one per
+    layer of its mixer."""
+    specs = list(cfg.prefix) + list(cfg.block) * cfg.n_repeats
+    return {fa.flash_attention_fwd: sum(s.mixer == "attn" for s in specs),
+            ss.ssd_intra_chunk_fwd: sum(s.mixer == "mamba" for s in specs)}
+
+
+def check_forward_on_small_input(arch: str = ARCH) -> None:
+    """Reduced ``arch`` in fp32: the card's forward through the kernels
+    (one launch per layer of their mixer) agrees with the CPU's plain
+    forward on the same weights and tokens at 5e-4 (the reference's
+    tolerance for the kernel inside the model,
+    tests/test_kernels.py:96-115), each MoE layer's expert choices first,
+    exactly."""
     cfg = get_config(arch).reduced()
     cpu, card = small_models(cfg)
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 96), dtype=np.int32))
-    want = build_prefill_step(get_model(cfg, "cpu"))(cpu, {"tokens": tokens})
-    n0 = kernel.launches
-    got = build_prefill_step(get_model(
-        dataclasses.replace(cfg, use_flash_kernel=True), "cuda"))(
-            card, {"tokens": tokens.cuda()})
+    with recording_routes() as rc:
+        want = build_prefill_step(get_model(cfg, "cpu"))(cpu,
+                                                         {"tokens": tokens})
+    n0 = {k: k.launches for k in KERNEL_NAMES}
+    with recording_routes() as rg:
+        got = build_prefill_step(get_model(
+            dataclasses.replace(cfg, use_flash_kernel=True), "cuda"))(
+                card, {"tokens": tokens.cuda()})
     torch.cuda.synchronize()
-    if kernel.launches - n0 != cfg.n_layers:
-        raise AssertionError("the reduced forward did not launch the kernel")
+    if {k: k.launches - n for k, n in n0.items()} != mixer_counts(cfg):
+        raise AssertionError("the reduced forward did not launch each "
+                             "kernel once per layer of its mixer")
+    compare_routes(rc, rg, f"reduced {arch} forward")
     if not torch.allclose(got.cpu(), want, atol=5e-4, rtol=5e-4):
         raise AssertionError(f"reduced forward: card and CPU differ by "
                              f"{max_abs_err(got.cpu(), want)}")
@@ -1446,11 +1600,13 @@ def train(eng) -> dict:
 
 
 def check_train_step_on_small_input(arch: str = ARCH) -> None:
-    """Reduced ``arch`` in fp32 (2 layers): one train step on the card
-    agrees with the CPU's on the same weights and batch: loss and grad norm
-    at rtol 1e-4, new parameters at rtol 2e-2, atol 2e-4 (the port's CPU
-    test against the reference, tests/test_torch_forward.py)."""
-    cfg = get_config(arch).reduced(n_layers=2)
+    """Reduced ``arch`` in fp32 (2 layers, or one super-block where that
+    is longer): one train step on the card agrees with the CPU's on the
+    same weights and batch: loss and grad norm at rtol 1e-4, new
+    parameters at rtol 2e-2, atol 2e-4 (the port's CPU test against the
+    reference, tests/test_torch_forward.py)."""
+    base = get_config(arch)
+    cfg = base.reduced(n_layers=max(2, len(base.prefix) + len(base.block)))
     cpu, card = small_models(cfg)
     shape = ShapeSpec("s", 32, 4, "train")
     api_c, api_g = get_model(cfg, "cpu"), get_model(cfg, "cuda")
@@ -2011,7 +2167,8 @@ def tensile_capture(link: dict, quant_bw: float) -> dict:
     sequence and graph, parameter names, the machine profile from the
     measured host link and quantize rate, and the unscheduled planned
     peak."""
-    cfg = dataclasses.replace(get_config(ARCH), remat="none")
+    cfg = dataclasses.replace(get_config(ARCH), remat="none",
+                              n_layers=TENSILE_LAYERS)
     api = get_model(cfg, "cuda")
     batch = api.input_specs(ShapeSpec("tensile_train", TRAIN_S, TRAIN_B,
                                       "train"), abstract=False, seed=0)
@@ -3362,7 +3519,8 @@ def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
     rehearse it on the CPU at a reduced size."""
     deterministic()
     dev = device
-    cfg = cfg or get_config(ARCH)
+    cfg = cfg or dataclasses.replace(get_config(ARCH),
+                                     n_layers=TENSILE_LAYERS)
     card = card_line() if dev == "cuda" else "cpu"
     api = get_model(cfg, dev)
     rec: dict = {"card": card}
@@ -3562,6 +3720,355 @@ def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
     return rec
 
 
+# ----------------------------------------------------------------------
+# the MoE slice: Moonlight-16B-A3B and Kimi-K2 at full width
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def recording_routes():
+    """While active, every router call of ``models/moe.py`` appends its
+    experts (T, k) and each token's top-k margin (the k-th probability
+    less the (k+1)-th) to the yielded list, on the host, in call order:
+    one entry per MoE layer and forward."""
+    routes: list = []
+    router = moe_mod._router
+
+    def recorded(p, x2d, top_k):
+        weights, experts, aux = router(p, x2d, top_k)
+        with torch.no_grad():
+            probs = torch.softmax(torch.einsum(
+                "td,de->te", x2d.float(), p["router"].float()), dim=-1)
+            top = torch.topk(probs, min(top_k + 1, probs.shape[-1]),
+                             dim=-1).values
+            margin = top[:, top_k - 1] - top[:, -1]
+        routes.append((experts.detach().cpu(), margin.cpu()))
+        return weights, experts, aux
+
+    moe_mod._router = recorded
+    try:
+        yield routes
+    finally:
+        moe_mod._router = router
+
+
+def compare_routes(want: list, got: list, what: str) -> int:
+    """The same set of experts for every token of every MoE layer call,
+    exactly (the order of a token's k experts only orders the sum of
+    their weighted outputs: two near-equal probabilities may swap places
+    without changing a choice or a slot); on a flip, the first token's
+    layer call, experts and both devices' top-k margins are printed before
+    the raise.  Returns the calls."""
+    if len(want) != len(got):
+        raise AssertionError(f"{what}: {len(got)} router calls, not "
+                             f"{len(want)}")
+    for layer, ((ew, mw), (eg, mg)) in enumerate(zip(want, got)):
+        flips = torch.nonzero((ew.sort(-1).values != eg.sort(-1).values)
+                              .any(-1)).flatten()
+        if len(flips):
+            t = int(flips[0])
+            log(f"[routes] {what}: MoE layer call {layer}, token {t}: "
+                f"experts {ew[t].tolist()} and {eg[t].tolist()}, top-k "
+                f"margins {float(mw[t]):.3e} and {float(mg[t]):.3e}; "
+                f"{len(flips)} tokens differ")
+            raise AssertionError(f"{what}: expert choices differ at MoE "
+                                 f"layer call {layer}")
+    return len(want)
+
+
+@contextlib.contextmanager
+def recording_shared(calls: list):
+    """While active, each call of ``models/moe.py::_shared_ffn`` appends
+    its (params, input, output) to ``calls``."""
+    shared = moe_mod._shared_ffn
+
+    def recorded(p, x2d, act):
+        y = shared(p, x2d, act)
+        calls.append((p, x2d, y))
+        return y
+
+    moe_mod._shared_ffn = recorded
+    try:
+        yield calls
+    finally:
+        moe_mod._shared_ffn = shared
+
+
+def serve_numbers(res: dict) -> dict:
+    """What the report needs of a ``serve`` result, without its engine."""
+    out = {}
+    for name, r in res["runs"].items():
+        rep = r["report"]
+        out[name] = {
+            "wall_s": r["wall_s"], "tokens": rep.tokens_generated,
+            "tokens_per_s": rep.tokens_generated / r["wall_s"],
+            "median_step_ms": r["median_step_ms"],
+            "max_memory_allocated": r["max_memory_allocated"],
+            "evictions": rep.evictions, "oom_events": rep.oom_events,
+            "peak_bytes": rep.peak_bytes, "budget": r["budget"]}
+    # the main path's launches: the budgeted run's, counted from 0
+    out["budgeted"]["launches"] = res["runs"]["budgeted"]["launches"]
+    return out
+
+
+def moe_prefill_fp32(cfg) -> dict:
+    """Moonlight at full width and ``cfg.n_layers`` layers in fp32 (weights
+    from seed 0 on the card): the kernel prefill against the plain prefill
+    at B x S, end to end, with every token's expert choices equal."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    with recording_routes() as r_flash:
+        flash = build_prefill_step(get_model(dataclasses.replace(
+            cfg, use_flash_kernel=True), "cuda"))(params, batch)
+    with recording_routes() as r_plain:
+        plain = build_prefill_step(get_model(cfg, "cuda"))(params, batch)
+    calls = compare_routes(r_plain, r_flash, f"fp32 {cfg.name} prefill at "
+                           f"{cfg.n_layers} layers, kernel vs plain")
+    out = {"fp32": rel_max_diff(flash, plain), "router_calls": calls,
+           "params_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters())}
+    del params, flash, plain
+    torch.cuda.empty_cache()
+    log(f"[moe] fp32 prefill at {cfg.n_layers} layers: " + json.dumps(out))
+    if not out["fp32"] <= PREFILL_REL_TOL["fp32"]:
+        raise AssertionError(f"fp32 kernel and plain prefill differ: "
+                             f"{out['fp32']} > {PREFILL_REL_TOL['fp32']}")
+    return out
+
+
+def moe_train(link: dict) -> dict:
+    """Moonlight at full width and MOE_TRAIN_LAYERS layers: TRAIN_STEPS
+    steps of ``build_train_step`` (block remat, the aux loss in the loss),
+    whose loss must be finite and fall; then the functional step (no
+    remat) captured on fake tensors, its operator latencies measured by an
+    unscheduled run, planned by ``tensile`` at MOE_BUDGET of its planned
+    peak and run once on ``FxExecutor`` (async swaps) from the same state:
+    bit-identical to the unscheduled step, the allocator within
+    ALLOC_LEDGER_TOL of the ledger peak, at least one swap-out."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TRAIN_LAYERS)
+    api = get_model(cfg, "cuda")
+    batch = api.input_specs(ShapeSpec("moe_train", TRAIN_S, TRAIN_B,
+                                      "train"), abstract=False, seed=0)
+    params = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    opt = opt_state_for(params)
+    step = build_train_step(api, TrainStepConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    eager = {"losses": losses, "step_ms": step_ms,
+             "median_step_ms": statistics.median(step_ms),
+             "tokens_per_s": TRAIN_B * TRAIN_S
+             / (statistics.median(step_ms) * 1e-3),
+             "max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "param_count": cfg.param_count()}
+    log(f"[moe] train {cfg.name} at {MOE_TRAIN_LAYERS} layers, B={TRAIN_B} "
+        f"S={TRAIN_S} bf16: " + json.dumps(eager))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE train losses {losses}: not finite or "
+                             "not falling")
+    del params, opt, step, metrics
+    torch.cuda.empty_cache()
+
+    # ---- under TENSILE --------------------------------------------------
+    cfg = dataclasses.replace(cfg, remat="none")
+    api = get_model(cfg, "cuda")
+    fstep = build_functional_train_step(api, TrainStepConfig())
+    meta = dict(TransformerLM(cfg, device="meta").named_parameters())
+    t0 = time.perf_counter()
+    args = pytree.tree_map(lambda p: torch.empty_like(p, device="cuda"),
+                           (meta, adamw_init(meta)))
+    seq, gm = capture_train_step(fstep, *args, batch,
+                                 cost_model=CostModel(calibrate_cuda()))
+    capture_s = time.perf_counter() - t0
+    del args
+    profile = MachineProfile(host_link_bw=link["host_link_bw"],
+                             host_link_latency=link["host_link_latency"],
+                             dma_batch_overhead=link["dma_batch_overhead"])
+    n_state = 1 + 3 * len(meta)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    ex0 = FxExecutor(gm, seq, None, engine=MemoryEngine(profile),
+                     measure_latency=True)
+    outs, wall_u, alloc_u, ledger_u = _run_state(
+        ex0, _tensile_state(cfg, batch), base)
+    seq.set_latencies(ex0.stats.op_latencies)
+    ref = _host_copy(outs)
+    del ex0, outs
+    torch.cuda.empty_cache()
+    unsched_peak = simulate([seq], None, profile, iterations=1,
+                            transfer_mode="sync").peak_bytes
+    budget = int(MOE_BUDGET * unsched_peak)
+    res, plan_s = _plan(seq, profile, "tensile", budget)
+    plan = res.plans[seq.job_id]
+    ints = sum(1 for e in plan.events
+               if not seq.tensors[e.tensor_id].dtype.startswith(
+                   ("float", "bfloat")))
+    ex = FxExecutor(gm, seq, plan, async_swap=True,
+                    engine=MemoryEngine(profile))
+    outs, wall_s_, alloc, ledger = _run_state(ex, _tensile_state(cfg, batch),
+                                              base)
+    diff = [i for i, (a, b) in enumerate(zip(outs, ref))
+            if not torch.equal(a.cpu(), b)]
+    out = {"operators": len(seq.operators), "tensors": len(seq.tensors),
+           "capture_s": capture_s, "planning_s": plan_s,
+           "planned_unscheduled_peak": unsched_peak, "budget": budget,
+           "predicted_peak": res.final_report.peak_bytes,
+           "plan_events": _event_counts(seq, plan),
+           "events_on_integer_tensors": ints,
+           "unscheduled": {"wall_s": wall_u, "max_memory_allocated": alloc_u,
+                           "ledger_peak": ledger_u},
+           "scheduled": {"wall_s": wall_s_, "max_memory_allocated": alloc,
+                         "ledger_peak": ledger,
+                         "swap_outs": ex.stats.swap_out_count,
+                         "swap_ins": ex.stats.swap_in_count,
+                         "recomputes": ex.stats.recompute_count},
+           "loss": float(outs[n_state]),
+           "outputs_differing": len(diff), "eager": eager}
+    del ex, outs, ref
+    torch.cuda.empty_cache()
+    log(f"[moe] tensile {cfg.name} at {MOE_TRAIN_LAYERS} layers: "
+        + json.dumps(out))
+    if diff:
+        raise AssertionError(f"the scheduled MoE step differs from the "
+                             f"unscheduled step in outputs {diff[:8]}")
+    if abs(alloc / ledger - 1) > ALLOC_LEDGER_TOL:
+        raise AssertionError(f"allocator peak {alloc} B is off the ledger "
+                             f"peak {ledger} B by more than "
+                             f"{ALLOC_LEDGER_TOL:.0%}")
+    if out["scheduled"]["swap_outs"] < 1:
+        raise AssertionError("the scheduled MoE step swapped nothing out")
+    return out
+
+
+def kimi_prefix_and_shared_expert() -> dict:
+    """Kimi-K2 at full width and KIMI_LAYERS layers (the dense prefix layer
+    and one MoE layer of 384 experts, top-8, one shared expert; bf16
+    weights from seed 0): one prefill at B 1 x S through the flash kernel
+    at D 112 (one launch per layer, each layer within the bf16 per-layer
+    bound of its plain path, finite logits, the shared expert's output not
+    zero and equal to ``_shared_ffn`` run alone on its input, bit for bit),
+    then 4 decode steps with finite logits."""
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), n_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    params = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "param_count": cfg.param_count(),
+           "params_bytes": sum(p.numel() * p.element_size()
+                               for p in params.parameters())}
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PREFILL_S), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    step = build_prefill_step(get_model(dataclasses.replace(
+        cfg, use_flash_kernel=True), "cuda"))
+    fa.flash_attention_fwd.launches = 0       # the main path: counts from 0
+    with recording_shared([]) as shared:
+        logits = step(params, batch)
+    torch.cuda.synchronize()
+    out["flash_launches"] = fa.flash_attention_fwd.launches
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    want = mixer_counts(cfg)[fa.flash_attention_fwd]
+    if out["flash_launches"] != want or not finite:
+        raise AssertionError(f"Kimi-K2 prefill: {out['flash_launches']} "
+                             f"flash launches (want {want}), finite "
+                             f"{finite}")
+    if len(shared) != 1:
+        raise AssertionError(f"{len(shared)} shared-expert calls, not 1")
+    p, x2d, y = shared[0]
+    with torch.inference_mode():
+        again = moe_mod._shared_ffn(p, x2d, cfg.mlp_act)
+    out["shared_max_abs"] = float(y.float().abs().max())
+    if not (out["shared_max_abs"] > 0 and torch.equal(again, y)):
+        raise AssertionError("the shared expert's output is zero or differs "
+                             "from _shared_ffn alone")
+    del shared, p, x2d, y, again
+    out["bf16_layer"] = check_layers(params, cfg, batch["tokens"])
+    if not out["bf16_layer"] <= MOE_PREFILL_REL_TOL["bf16_layer"]:
+        raise AssertionError(f"Kimi-K2 flash per layer: {out['bf16_layer']}"
+                             f" > {MOE_PREFILL_REL_TOL['bf16_layer']}")
+    out["prefill_ms"] = wall_s(lambda: step(params, batch), 3) * 1e3
+    api = get_model(cfg, "cuda")
+    cache = api.init_cache(1, 8)
+    decode_ms = []
+    for i in range(4):
+        t = {"tokens": batch["tokens"][:, i:i + 1]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg, cache = api.decode(params, t, cache, i)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"Kimi-K2 decode step {i}: non-finite")
+    out["decode_ms"] = decode_ms
+    del params, cache, lg
+    torch.cuda.empty_cache()
+    log(f"[moe] {cfg.name} at {KIMI_LAYERS} layers: " + json.dumps(out))
+    return out
+
+
+def moe(link: dict) -> dict:
+    """The MoE slice on the card (see the module docstring); runs in a
+    fresh process, on an empty card."""
+    deterministic()
+    log(card_line())
+    for arch in MOE_SMALL_ARCHS:
+        timed(f"check_decode {arch}", check_decode_on_small_input, arch)
+        timed(f"check_forward {arch}", check_forward_on_small_input, arch)
+        timed(f"check_train_step {arch}", check_train_step_on_small_input,
+              arch)
+    flash_errs = timed("check_flash_moe", check_flash,
+                       [FLASH_MOONLIGHT, FLASH_KIMI])
+    kv_err = timed("check_leaves_moe", check_leaves,
+                   [(MOONLIGHT_LEAVES, 2, 0), (MOONLIGHT_LEAVES, 3, 0)])
+    kv = timed("time_leaves_moe", time_leaves, MOONLIGHT_LEAVES, 2)
+    log("[time] kv moonlight: " + json.dumps(kv))
+
+    t0 = time.perf_counter()
+    res = timed("serve_moe", serve, MachineProfile(), MOE_ARCH)
+    eng = res["eng"]
+    out = {"serve": serve_numbers(res),
+           "params_bytes": sum(p.numel() * p.element_size()
+                               for p in eng.params.parameters()),
+           "serve_phase_s": time.perf_counter() - t0}
+    del res
+    out["decode_profile"] = timed("profile_decode_moe", profile_decode, eng)
+    out["prefill"] = timed("prefill_moe", prefill, eng,
+                           fa.flash_attention_fwd, _attention_mix,
+                           MOE_PREFILL_REL_TOL, False)
+    del eng
+    torch.cuda.empty_cache()
+    out["prefill"]["fp32_at_layers"] = timed(
+        "prefill_fp32_moe", moe_prefill_fp32, dataclasses.replace(
+            get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS))
+    out["flash_moonlight"] = timed("time_flash_moe", time_flash,
+                                   FLASH_MOONLIGHT)
+    out["train"] = timed("train_moe", moe_train, link)
+    out["kimi"] = timed("kimi", kimi_prefix_and_shared_expert)
+    out["flash_kimi"] = timed("time_flash_kimi", time_flash, FLASH_KIMI)
+    out["flash_max_abs_err"] = {"moonlight": flash_errs[FLASH_MOONLIGHT],
+                                "kimi": flash_errs[FLASH_KIMI]}
+    out["kv"] = kv
+    out["kv_max_abs_err"] = kv_err
+    for k in ("profile",):
+        out["prefill"].pop(k, None)
+    log("[moe] " + json.dumps(out))
+    return out
+
+
 @contextlib.contextmanager
 def counting_swaps(counts: collections.Counter):
     """While active, count the executor's host copies (``out_``) and host
@@ -3694,8 +4201,7 @@ def main() -> int:
     timed("check_decode_ssm", check_decode_on_small_input, SSM_ARCH)
     ssm_pre = timed("prefill_ssm", prefill, ssm["eng"],
                     ss.ssd_intra_chunk_fwd, _mamba_mix, SSM_PREFILL_REL_TOL)
-    timed("check_forward_ssm", check_forward_on_small_input, SSM_ARCH,
-          ss.ssd_intra_chunk_fwd)
+    timed("check_forward_ssm", check_forward_on_small_input, SSM_ARCH)
     timed("train_ssm", train, ssm["eng"])
     timed("check_train_step_ssm", check_train_step_on_small_input, SSM_ARCH)
     ts = timed("time_ssd", time_ssd)
@@ -3781,6 +4287,14 @@ def main() -> int:
         "train_launcher", timeout=900))
     log("[train_launcher] " + json.dumps(tl))
 
+    # the MoE slice, in a fresh process on an empty card: Moonlight-16B-A3B
+    # served, prefilled and trained under TENSILE, Kimi-K2's prefix and
+    # shared expert, the reduced MoE and hybrid checks
+    torch.cuda.empty_cache()
+    log(f"[moe] this process holds {torch.cuda.memory_allocated()} B of "
+        "the card")
+    mo = timed("moe", lambda: in_fresh_process("moe", link, timeout=900))
+
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         tl = kv_times["tinyllama"]
@@ -3801,7 +4315,11 @@ def main() -> int:
             "mamba2_state": kv_times["mamba2_state"][name],
             "mamba2_state_bound_ms": kv_times["mamba2_state"]["bound_ms"],
             "restore_device_busy_ms": {
-                arch: r["device_busy_ms"] for arch, r in restore.items()}})
+                arch: r["device_busy_ms"] for arch, r in restore.items()},
+            "launches_moe_serve": mo["serve"]["budgeted"]["launches"][name],
+            "moonlight": mo["kv"][name],
+            "moonlight_bound_ms": mo["kv"]["bound_ms"],
+            "max_abs_err_moonlight": mo["kv_max_abs_err"]})
     b, sq, _, h, kvh, d, _, _, _ = FLASH_PREFILL
     kernels.append({
         "name": "flash_attention_fwd", "route": "cuda",
@@ -3816,7 +4334,18 @@ def main() -> int:
         "shape": [b, sq, h, kvh, d, "bfloat16", "causal"],
         **flash_build,
         "d128": {k: tf128[k] for k in ("ms", "library_ms", "bound_ms",
-                                       "tflops", "library_tflops")}})
+                                       "tflops", "library_tflops")},
+        "launches_moe_prefill": mo["prefill"]["launches"],
+        "moonlight": {**{k: mo["flash_moonlight"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops")}, "device_ms": mo["prefill"]["kernel_device_ms"],
+            "max_abs_err": mo["flash_max_abs_err"]["moonlight"],
+            "shape": list(FLASH_MOONLIGHT[:6]) + ["bfloat16", "causal"]},
+        "launches_kimi_prefill": mo["kimi"]["flash_launches"],
+        "kimi_d112": {**{k: mo["flash_kimi"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops")}, "max_abs_err": mo["flash_max_abs_err"]["kimi"],
+            "shape": list(FLASH_KIMI[:6]) + ["bfloat16", "causal"]}})
     for name in ("quantize_blocked", "dequantize_blocked"):
         kernels.append({
             "name": name, "route": "cuda", "source": QUANT_SOURCE,
@@ -3870,7 +4399,8 @@ def main() -> int:
     return 0
 
 
-FRESH_PHASES = {"train_launcher": train_launcher,
+FRESH_PHASES = {"moe": moe,
+                "train_launcher": train_launcher,
                 "experience_cold": experience_cold,
                 "experience_warm": experience_warm,
                 "multi_job": multi_job,

@@ -9,6 +9,8 @@ layer functions are pure functions over tensors, one per JAX function.
 from __future__ import annotations
 
 import functools
+import itertools
+import math
 from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -43,21 +45,39 @@ class ParamTree(nn.Module):
         return out
 
 
+# the largest float32 draw ``dense_init`` makes at once (2 GiB)
+DRAW_LIMIT_BYTES = 1 << 31
+
+
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
                device, scale: Optional[float] = None,
                lead: Sequence[int] = ()) -> nn.Parameter:
     """Normal(0, 1) * scale, drawn in float32 and cast, as the JAX
     ``dense_init``.  The scale rule reads the per-layer ``shape`` (fan-in is
     its first axis); ``lead`` prepends the layer-stack axes.  On the
-    ``meta`` device nothing is drawn."""
+    ``meta`` device nothing is drawn.
+
+    A leaf whose float32 draw would exceed ``DRAW_LIMIT_BYTES`` is drawn
+    slice by slice over as few leading axes as keep each slice within it,
+    each slice cast straight into the leaf: a full-width expert stack
+    (Moonlight's ``wi``, 8.9e9 elements) then needs no float32 copy of
+    itself.  Smaller leaves are one draw, as before."""
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
     full = tuple(lead) + tuple(shape)
     if torch.device(device).type == "meta":
         t = torch.empty(full, dtype=dtype, device=device)
-    else:
+    elif math.prod(full) * 4 <= DRAW_LIMIT_BYTES:
         t = (torch.randn(full, generator=gen, dtype=torch.float32,
                          device=device) * scale).to(dtype)
+    else:
+        n = next(k for k in range(1, len(full) + 1)
+                 if math.prod(full[k:]) * 4 <= DRAW_LIMIT_BYTES)
+        t = torch.empty(full, dtype=dtype, device=device)
+        for idx in itertools.product(*map(range, full[:n])):
+            t[idx].copy_(torch.randn(full[n:], generator=gen,
+                                     dtype=torch.float32, device=device)
+                         * scale)
     return nn.Parameter(t, requires_grad=False)
 
 

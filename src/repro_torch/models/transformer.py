@@ -1,12 +1,16 @@
-"""Decoder LM: attention or Mamba-2 mixers with dense (or no) FFNs.
+"""Decoder LM: attention or Mamba-2 mixers with dense, MoE or no FFNs.
 
 The model is ``n_repeats`` copies of a ``block`` of layers, with the layer
 parameters stacked on a leading axis as in the JAX package (which scans
 over them); here a Python loop over the repeats takes the scan's place.
 The full-sequence forward and loss (prefill, training) and the one-token
 decode step are ported for both mixers (``models/ssm.py`` holds Mamba-2);
-a layer is dispatched on ``spec.mixer`` as in the reference.  MoE FFNs
-raise ``NotImplementedError`` until their slice.
+a layer is dispatched on ``spec.mixer`` and ``spec.ffn`` as in the
+reference, so hybrid blocks (Jamba's Mamba/attention interleave with MoE
+on every other layer) and MoE models with a dense prefix and a shared
+expert (Kimi-K2) are built and run like the pure ones.  ``models/moe.py``
+holds the MoE FFN; its auxiliary load-balance loss is summed over the
+layers into the forward's ``aux``, and the decode step drops it.
 """
 from __future__ import annotations
 
@@ -20,25 +24,20 @@ from .attention import (Attention, attention_block, decode_attention_block,
 from .layers import (MLP, Embedding, ParamTree, embed_tokens,
                      fused_unembed_cross_entropy, mlp_apply, ones_init,
                      rmsnorm, softmax_cross_entropy, unembed)
+from .moe import MoE, moe_apply
 from .ssm import Mamba2, init_ssm_cache, mamba2_block, mamba2_decode_step
-
-
-def _check_spec(spec) -> None:
-    if spec.ffn == "moe":
-        raise NotImplementedError("MoE FFNs are not ported yet")
 
 
 # ----------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------
 class DecoderLayer(ParamTree):
-    """``_init_layer`` for an attention or Mamba-2 mixer and a dense (or
-    no) FFN."""
+    """``_init_layer`` for an attention or Mamba-2 mixer and a dense, MoE
+    or no FFN (``mlp`` or ``moe``, the reference's keys)."""
 
     def __init__(self, spec, cfg, *, dtype, device, gen=None,
                  lead: Sequence[int] = (), d_ff: Optional[int] = None):
         super().__init__()
-        _check_spec(spec)
         kw = dict(dtype=dtype, device=device, lead=lead)
         self.ln1 = ones_init((cfg.d_model,), **kw)
         if spec.mixer == "attn":
@@ -48,8 +47,13 @@ class DecoderLayer(ParamTree):
             self.mamba = Mamba2(cfg, gen=gen, **kw)
         if spec.ffn != "none":
             self.ln2 = ones_init((cfg.d_model,), **kw)
-            self.mlp = MLP(cfg.d_model, d_ff or cfg.d_ff, cfg.mlp_act,
-                           gen=gen, **kw)
+            if spec.ffn == "moe":
+                self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff,
+                               cfg.mlp_act, cfg.n_shared_experts, gen=gen,
+                               **kw)
+            else:
+                self.mlp = MLP(cfg.d_model, d_ff or cfg.d_ff, cfg.mlp_act,
+                               gen=gen, **kw)
 
 
 class Blocks(ParamTree):
@@ -102,7 +106,12 @@ def _apply_layer(p, spec, x, positions, cfg, aux):
         x = x + mamba2_block(p["mamba"], h, cfg)
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+        if spec.ffn == "moe":
+            ff, a = moe_apply(p["moe"], h, cfg)
+            aux = aux + a
+        else:
+            ff = mlp_apply(p["mlp"], h, cfg.mlp_act)
+        x = x + ff
     return x, aux
 
 
@@ -193,7 +202,6 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, Any]:
     dtype = getattr(torch, cfg.dtype)
 
     def layer_cache(spec, lead=()):
-        _check_spec(spec)
         if spec.mixer == "attn":
             return init_kv_cache(batch, max_len, cfg.n_kv_heads,
                                  cfg.head_dim, dtype, device, lead=lead)
@@ -217,7 +225,11 @@ def _decode_layer(p, spec, x, cache, index, cfg):
     x = x + mix
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+        if spec.ffn == "moe":
+            ff, _ = moe_apply(p["moe"], h, cfg)
+        else:
+            ff = mlp_apply(p["mlp"], h, cfg.mlp_act)
+        x = x + ff
     return x, new_cache
 
 

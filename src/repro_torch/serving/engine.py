@@ -25,10 +25,12 @@ Differences from the JAX engine, none of which changes a decision or a
 token: the cache is updated in place; host shadows are copies (pinned
 host memory when the cache is on the card), never views of the live cache;
 prompts are drawn with numpy; and the batched path moves the rows of
-every cache leaf in one launch of the hand-written kernels of
-``kernels/kv_block_copy.py``, which read and write the leaves in place
-(the JAX engine moves each leaf's slot axis to the front, a copy of the
-leaf, to make a row pool).
+every cache leaf through the hand-written kernels of
+``kernels/kv_block_copy.py``, one launch per group of up to
+``MAX_LEAVES`` leaves (one launch for TinyLlama's 2 and Mamba-2's 4, two
+for Jamba's 30), which read and write the leaves in place (the JAX engine
+moves each leaf's slot axis to the front, a copy of the leaf, to make a
+row pool).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from ..configs import get_config
 from ..core.engine import MemoryEngine
 from ..core.plan import MachineProfile
 from ..device import resolve_device
-from ..kernels.kv_block_copy import kv_block_gather, kv_block_scatter
+from ..kernels.kv_block_copy import (MAX_LEAVES, kv_block_gather,
+                                     kv_block_scatter)
 from ..launch.steps import build_serve_step
 from ..models.registry import get_model
 from .residency import SeqView, build_horizon
@@ -133,6 +136,8 @@ class ServingEngine:
         cfg = get_config(arch)
         if reduced:
             cfg = cfg.reduced()
+            if cfg.n_experts:
+                cfg.moe_impl = "dense"
         if cfg.enc_dec:
             raise ValueError(
                 "ServingEngine serves decoder-only LMs; encoder-decoder "
@@ -221,19 +226,38 @@ class ServingEngine:
         return ids, [leaves[i] for i in ids], [self._axes[i].batch
                                                for i in ids]
 
+    @staticmethod
+    def _groups(leaves: List[torch.Tensor], axes: List[int]):
+        """Consecutive groups of at most ``MAX_LEAVES`` leaves (and their
+        axes): one kernel launch moves one group."""
+        for i in range(0, len(leaves), MAX_LEAVES):
+            yield leaves[i:i + MAX_LEAVES], axes[i:i + MAX_LEAVES]
+
+    def _gather(self, leaves: List[torch.Tensor], slots: List[int],
+                axes: List[int]) -> List[torch.Tensor]:
+        return [rows for group, ax in self._groups(leaves, axes)
+                for rows in kv_block_gather(group, slots, axis=ax)]
+
+    def _scatter(self, leaves: List[torch.Tensor], slots: List[int],
+                 blocks: List[torch.Tensor], axes: List[int]) -> None:
+        for i, (group, ax) in enumerate(self._groups(leaves, axes)):
+            kv_block_scatter(group, slots,
+                             blocks[i * MAX_LEAVES:(i + 1) * MAX_LEAVES],
+                             axis=ax)
+
     def _save_slots(self, states: List[SeqState]) -> int:
-        """Batched shadow save: one ``kv_block_gather`` launch moves every
-        slot's row of every cache leaf at once, read in place from the
-        cache, then per-state occupied prefixes are sliced out in the
-        per-slot shadow format (so either restore path can consume them).
-        Returns bytes copied."""
+        """Batched shadow save: one ``kv_block_gather`` launch per group of
+        up to ``MAX_LEAVES`` cache leaves moves every slot's row of those
+        leaves at once, read in place from the cache, then per-state
+        occupied prefixes are sliced out in the per-slot shadow format (so
+        either restore path can consume them).  Returns bytes copied."""
         todo = [s for s in states if s.rid not in self._shadow]
         if not todo:
             return 0
         if len(todo) == 1:
             return self._save_slot(todo[0])
         ids, leaves, axes = self._slotted()
-        gathered = kv_block_gather(leaves, [s.slot for s in todo], axis=axes)
+        gathered = self._gather(leaves, [s.slot for s in todo], axes)
         shadows: Dict[str, Dict[int, torch.Tensor]] = {s.rid: {} for s in todo}
         nbytes = 0
         for i, rows in zip(ids, gathered):
@@ -251,8 +275,9 @@ class ServingEngine:
 
     def _restore_slots(self, states: List[SeqState]) -> int:
         """Batched shadow restore: gather the cohort's current rows of
-        every cache leaf in one launch, patch each occupied prefix from its
-        shadow, and scatter the rows back into the cache in one launch.
+        every cache leaf (one launch per group of leaves), patch each
+        occupied prefix from its shadow, and scatter the rows back into the
+        cache (one launch per group).
         Suffix regions round-trip their own bytes, so the result is
         bit-identical to per-slot ``_restore_slot`` calls.  Returns bytes
         written."""
@@ -263,7 +288,7 @@ class ServingEngine:
             return self._restore_slot(todo[0])
         ids, leaves, axes = self._slotted()
         slots = [s.slot for s in todo]
-        gathered = kv_block_gather(leaves, slots, axis=axes)
+        gathered = self._gather(leaves, slots, axes)
         nbytes = 0
         for i, rows in zip(ids, gathered):
             red = self._reduced_axis(self._axes[i])
@@ -275,7 +300,7 @@ class ServingEngine:
                 dst = rows[k] if red is None else rows[k].narrow(red, 0,
                                                                  s.pos)
                 dst.copy_(arr)
-        kv_block_scatter(leaves, slots, gathered, axis=axes)
+        self._scatter(leaves, slots, gathered, axes)
         for s in todo:
             self._shadow.pop(s.rid, None)
         return nbytes

@@ -144,6 +144,13 @@ def test_decode_step_matches_the_reference(n_layers):
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
                                   "moonshot-v1-16b-a3b", "whisper-base"])
 def test_unported_families_raise(arch):
+    """Whisper (encoder-decoder) is not ported and raises.  The MoE
+    families raised until their slice; now they build, with their MoE
+    leaves (``tests/test_torch_moe.py`` holds them to the reference)."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    if cfg.enc_dec:
+        with pytest.raises(NotImplementedError):
+            get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    else:
+        model = get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        assert any(".moe." in k for k in model.state_dict())

@@ -24,6 +24,7 @@ from repro.core import MemoryEngine as JaxMemoryEngine
 from repro.serving import ServeSession as JaxServeSession
 from repro.serving import ServingEngine as JaxServingEngine
 from repro.serving import make_trace as jax_make_trace
+from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import MachineProfile, MemoryEngine
 from repro_torch.kernels import kv_block_copy as kbc
@@ -53,16 +54,31 @@ def trace6():
     return make_trace("poisson", 6, seed=0, prompt_len=PROMPT, gen_len=GEN)
 
 
-@pytest.fixture(scope="module")
-def engines():
-    jeng = JaxServingEngine("tinyllama-1.1b", max_sequences=4,
-                            max_len=MAX_LEN, seed=0)
-    teng = ServingEngine("tinyllama-1.1b", max_sequences=4, max_len=MAX_LEN,
-                         seed=0, device="cpu")
+def _engine_pair(arch: str):
+    jeng = JaxServingEngine(arch, max_sequences=4, max_len=MAX_LEN, seed=0)
+    teng = ServingEngine(arch, max_sequences=4, max_len=MAX_LEN, seed=0,
+                         device="cpu")
     teng.params = params_from_jax(jax.tree.map(np.asarray, jeng.params),
                                   teng.cfg, "cpu")
     teng.prompt_for = jeng.prompt_for     # the reference's prompts, as-is
     return jeng, teng
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _engine_pair("tinyllama-1.1b")
+
+
+@pytest.fixture(scope="module")
+def other_engines():
+    """Engine pairs of the MoE and hybrid configs, made on first use."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            made[arch] = _engine_pair(arch)
+        return made[arch]
+    return get
 
 
 def test_traces_are_copies(trace6):
@@ -93,13 +109,24 @@ def test_engine_shapes_match_the_reference(engines):
         == [(a.batch, a.length) for a in jeng._axes]
 
 
-@pytest.mark.parametrize("batch_transfers", [False, True])
-def test_engine_matches_the_reference(engines, trace6, batch_transfers):
-    jeng, teng = engines
-    mem_j, mem_t = _mem(False), _mem(True)
-    rep_j, out_j = jeng.serve(trace6, budget_bytes=BUDGET, engine=mem_j,
+@pytest.mark.parametrize("arch,batch_transfers", [
+    pytest.param(None, False, id="False"),
+    pytest.param(None, True, id="True"),
+    # reduced MoE serves the dense path, as the reference's engine does
+    pytest.param("moonshot-v1-16b-a3b", True, id="moonshot-v1-16b-a3b-True"),
+    # 30 slotted cache leaves: two groups of at most MAX_LEAVES a transfer
+    pytest.param("jamba-1.5-large-398b", True,
+                 id="jamba-1.5-large-398b-True")])
+def test_engine_matches_the_reference(engines, other_engines, trace6, arch,
+                                      batch_transfers):
+    jeng, teng = other_engines(arch) if arch else engines
+    assert teng.bytes_per_token == jeng.bytes_per_token
+    assert teng.cfg.moe_impl == jeng.cfg.moe_impl
+    budget = teng.bytes_per_token * (MAX_LEN * 2 + 2)
+    mem_j, mem_t = _mem(False, budget), _mem(True, budget)
+    rep_j, out_j = jeng.serve(trace6, budget_bytes=budget, engine=mem_j,
                               batch_transfers=batch_transfers)
-    rep_t, out_t = teng.serve(trace6, budget_bytes=BUDGET, engine=mem_t,
+    rep_t, out_t = teng.serve(trace6, budget_bytes=budget, engine=mem_t,
                               batch_transfers=batch_transfers)
     assert out_t == out_j
     assert mem_t.trace.keys() == mem_j.trace.keys()
@@ -208,3 +235,41 @@ def test_cli_serves_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "device=cpu" in out and "served=3" in out
     assert "oom_events=0" in out
+
+
+def test_reduced_moe_serves_the_dense_path(other_engines):
+    _, teng = other_engines("moonshot-v1-16b-a3b")
+    assert teng.cfg.n_experts and teng.cfg.moe_impl == "dense"
+    # the registry's config is untouched: full width serves the scatter
+    assert get_config("moonshot-v1-16b-a3b").moe_impl == "scatter"
+
+
+def test_batched_transfers_move_more_than_max_leaves_in_groups(
+        other_engines, trace6, monkeypatch):
+    """Jamba's cache has 30 slotted leaves (one attention layer's k and v,
+    seven Mamba layers' four each): every batched save and restore makes
+    one gather (and one scatter) call per consecutive group of at most
+    ``MAX_LEAVES``, 16 then 14, and the tokens stay golden."""
+    _, teng = other_engines("jamba-1.5-large-398b")
+    n = len(teng._slotted()[1])
+    assert n == 30 > kbc.MAX_LEAVES
+    _, golden = teng.serve(trace6, budget_bytes=None, schedule=False)
+    calls = []
+
+    def spy(fn, name):
+        def call(leaves, idx, *rest, **kw):
+            calls.append((name, len(leaves)))
+            return fn(leaves, idx, *rest, **kw)
+        return call
+
+    for name in ("kv_block_gather", "kv_block_scatter"):
+        monkeypatch.setattr(serving_engine, name,
+                            spy(getattr(serving_engine, name), name))
+    budget = teng.bytes_per_token * (MAX_LEN * 2 + 2)
+    rep, out = teng.serve(trace6, budget_bytes=budget, engine=_mem(True,
+                                                                 budget),
+                          batch_transfers=True)
+    assert out == golden and rep.evictions > 0
+    for name in ("kv_block_gather", "kv_block_scatter"):
+        sizes = [k for c, k in calls if c == name]
+        assert sizes and sizes == [16, 14] * (len(sizes) // 2)
