@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives
-its paths at the full width of TinyLlama-1.1B, then of Mamba-2 780M (bf16,
-random weights from seed 0):
+its paths at the full width of TinyLlama-1.1B, then of Mamba-2 780M,
+Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
 
 1. serving: the KV gather/scatter kernel bit-exact against its plain
    version on 2-D pools, on single cache leaves and on one call over
@@ -153,6 +153,26 @@ random weights from seed 0):
    swap-outs; Kimi-K2's dense prefix layer and one MoE layer with its
    shared expert at full width: a B 1 x S 2048 prefill through the flash
    kernel at D 112 and 4 decode steps.
+9. The whisper slice (``whisper``, in a fresh process): the flash kernel
+   at whisper's prefill shape (B 16, 375 tokens, 8 heads of 64, MHA;
+   ragged tiles) in bf16 and fp32 against its plain version, two calls
+   bit-identical, timed beside ``scaled_dot_product_attention``; reduced
+   fp32 whisper (2 encoder layers, 1 decoder layer, 160 frames: the
+   chunked encoder and cross-attention) forward, decode and train step
+   card-vs-CPU; then whisper-base at full width and depth (6 encoder and
+   6 decoder layers, bf16, seed 0) on B 16 windows of 1500 frames (30 s
+   of audio) and 375 tokens: the prefill through ``build_prefill_step``
+   with the flash kernel (6 launches, only in the decoder's causal
+   self-attention; per layer and end to end in bf16, and end to end in
+   fp32 at full depth, against the plain path); 32 greedy decode steps
+   through ``build_serve_step`` against a cache of 448 positions, whose
+   fp32 logits must equal the forward over the same tokens; 4 train
+   steps with block remat (loss falling, the cross-attention biases,
+   which the loss never reads, exactly zero); the functional step
+   without remat captured and run under ``tensile`` at 0.7 of its
+   planned peak (bit-identical, allocator within 5 % of the ledger,
+   swap-outs, what the plan did with the encoder's output); and
+   ``launch.train.main --arch whisper-base --full`` for 3 steps.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -217,16 +237,16 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
                                      build_functional_train_step,
-                                     build_prefill_step, build_train_step,
-                                     offloaded_bytes, opt_state_for,
-                                     opt_state_to_host)
+                                     build_prefill_step, build_serve_step,
+                                     build_train_step, offloaded_bytes,
+                                     opt_state_for, opt_state_to_host)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
 from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.ssm import mamba2_block  # noqa: E402
-from repro_torch.models.transformer import TransformerLM  # noqa: E402
+from repro_torch.models import whisper as whisper_mod  # noqa: E402
 from repro_torch.obs import (DriftMonitor, EventLog,  # noqa: E402
                              MetricsRegistry)
 from repro_torch.optim.adam import adamw_init  # noqa: E402
@@ -474,6 +494,32 @@ FLASH_KIMI = (1, PREFILL_S, PREFILL_S, 64, 8, 112, True, torch.bfloat16, 0)
 # Moonlight's two slotted cache leaves (k, v) at the serve's shape
 MOONLIGHT_LEAVES = [((48, MAX_SEQUENCES, MAX_LEN, 16, 128), torch.bfloat16,
                      1)] * 2
+# the whisper phase (``whisper``, a fresh process): whisper-base at full
+# width and depth (6 encoder and 6 decoder layers, d 512, 8 heads of 64,
+# vocab 51968 padded) on 30-s windows: 3000 mel frames, which the stubbed
+# conv frontend's stride 2 makes 1500 encoder frames, and 1500 / 4 = 375
+# decoder tokens by the reference's enc_seq_ratio; B 16 windows.  Decode
+# runs WHISPER_DECODE_STEPS greedy steps against a cache of Whisper's text
+# context (448); train WHISPER_TRAIN_STEPS steps with block remat; the
+# functional step without remat under ``tensile`` at WHISPER_BUDGET of its
+# planned peak.  The reduced card-vs-CPU checks run WHISPER_SMALL_S frames,
+# over 2 * attn_chunk (64), so the encoder and the cross-attention take
+# ``attend_chunked``
+WHISPER_ARCH = "whisper-base"
+WHISPER_B, WHISPER_S = 16, 1500
+WHISPER_MAX_LEN = 448
+WHISPER_DECODE_STEPS = 32
+WHISPER_TRAIN_STEPS = 4
+WHISPER_BUDGET = 0.7
+WHISPER_SMALL_S = 160
+# the decode steps' fp32 logits against the forward over the same tokens
+# (tests/test_models.py:108-125, as tests/test_torch_forward.py holds it)
+DECODE_FORWARD_TOL = 2e-3
+# the decoder's causal self-attention at whisper's prefill: 375 is no
+# multiple of a tile, so the kernel's ragged edges run at full width
+FLASH_WHISPER = (WHISPER_B, WHISPER_S // 4, WHISPER_S // 4, 8, 8, 64, True,
+                 torch.bfloat16, 0)
+FLASH_WHISPER_FP32 = FLASH_WHISPER[:7] + (torch.float32, 0)
 # the device kernels each prefill kernel's wrapper launches, by name
 KERNEL_NAMES = {fa.flash_attention_fwd: ("flash_fwd",),
                 ss.ssd_intra_chunk_fwd: ("ssd_fwd",)}
@@ -810,11 +856,11 @@ def tolerance_share(got: torch.Tensor, want: torch.Tensor,
                   / (tol + tol * want.double().abs())).max())
 
 
-def widened(params, cfg):
-    """``params`` in float64 on the same device, and ``cfg`` in float64."""
-    cfg = dataclasses.replace(cfg, dtype="float64")
-    wide = TransformerLM(cfg, device="meta")
-    wide.load_state_dict({k: v.double() for k, v
+def widened(params, cfg, dtype: str = "float64"):
+    """``params`` in ``dtype`` on the same device, and ``cfg`` in it."""
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    wide = get_model(cfg, "cpu").shell()
+    wide.load_state_dict({k: v.to(getattr(torch, dtype)) for k, v
                           in params.state_dict().items()}, assign=True)
     return wide, cfg
 
@@ -855,9 +901,9 @@ def check_decode_on_small_input(arch: str = ARCH) -> None:
 def small_models(cfg):
     """Reduced weights from seed 0 on the CPU, and the same values on the
     card."""
-    cpu = TransformerLM(cfg, device="cpu",
-                        generator=torch.Generator().manual_seed(0))
-    card = TransformerLM(cfg, device="meta")
+    api = get_model(cfg, "cpu")
+    cpu = api.init(torch.Generator().manual_seed(0))
+    card = api.shell()
     card.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()},
                          assign=True)
     return cpu, card
@@ -1509,10 +1555,7 @@ def check_layers(params, cfg, tokens, mix=_attention_mix) -> float:
 def prefill_fp32(eng, batch) -> float:
     """The full-width prefill in fp32 (the serve weights widened), kernel
     path against plain path: the relative difference of the logits."""
-    cfg = dataclasses.replace(eng.cfg, dtype="float32")
-    params = TransformerLM(cfg, device="meta")
-    params.load_state_dict({k: v.float() for k, v
-                            in eng.params.state_dict().items()}, assign=True)
+    params, cfg = widened(eng.params, eng.cfg, "float32")
     flash = build_prefill_step(get_model(
         dataclasses.replace(cfg, use_flash_kernel=True), "cuda"))(params,
                                                                   batch)
@@ -1971,7 +2014,7 @@ def _tensile_state(cfg, batch) -> list:
     step's argument order: parameters from a CUDA generator seeded 0, zero
     AdamW moments, the fixed batch.  Nothing else keeps a reference to the
     parameters, so the executor can free what the plan frees."""
-    params = dict(TransformerLM(cfg, device="cuda", generator=torch.Generator(
+    params = dict(get_model(cfg, "cuda").init(torch.Generator(
         device="cuda").manual_seed(0)).named_parameters())
     return pytree.tree_leaves([params, adamw_init(params), batch])
 
@@ -2176,7 +2219,7 @@ def tensile_capture(link: dict, quant_bw: float) -> dict:
     calib = calibrate_cuda()
     log(f"[tensile] calibrate_cuda: {calib.flops:.4e} flop/s, "
         f"{calib.mem_bw:.4e} B/s")
-    params = dict(TransformerLM(cfg, device="meta").named_parameters())
+    params = dict(get_model(cfg, "cuda").shell().named_parameters())
     t0 = time.perf_counter()
     # traced on fake tensors: the arguments' shapes, dtypes and device only
     args = pytree.tree_map(lambda p: torch.empty_like(p, device="cuda"),
@@ -2499,8 +2542,8 @@ def train_workload(cfg, api, step, device: str = "cuda"):
     ``seed``, zero AdamW moments, a fixed batch of ``batch`` x TRAIN_S
     tokens."""
     def make(batch: int, seed: int):
-        params = dict(TransformerLM(cfg, device=device, generator=(
-            torch.Generator(device=device).manual_seed(seed)))
+        params = dict(get_model(cfg, device).init(
+            torch.Generator(device=device).manual_seed(seed))
             .named_parameters())
         data = api.input_specs(ShapeSpec(f"multi_{seed}", TRAIN_S, batch,
                                          "train"), abstract=False, seed=seed)
@@ -3669,7 +3712,7 @@ def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
     try:
         # bf16 parameters and two fp32 moments: 10 B a parameter
         state_bytes = 5 * sum(p.numel() * p.element_size() for p in
-                              TransformerLM(cfg, device="meta").parameters())
+                              get_model(cfg, dev).shell().parameters())
         free = shutil.disk_usage(root).free
         if free < 2.5 * state_bytes:
             raise AssertionError(
@@ -3814,7 +3857,7 @@ def moe_prefill_fp32(cfg) -> dict:
     from seed 0 on the card): the kernel prefill against the plain prefill
     at B x S, end to end, with every token's expert choices equal."""
     cfg = dataclasses.replace(cfg, dtype="float32")
-    params = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+    params = get_model(cfg, "cuda").init(torch.Generator(
         device="cuda").manual_seed(0))
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (PREFILL_B, PREFILL_S), dtype=np.int32)
@@ -3852,7 +3895,7 @@ def moe_train(link: dict) -> dict:
     api = get_model(cfg, "cuda")
     batch = api.input_specs(ShapeSpec("moe_train", TRAIN_S, TRAIN_B,
                                       "train"), abstract=False, seed=0)
-    params = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+    params = get_model(cfg, "cuda").init(torch.Generator(
         device="cuda").manual_seed(0))
     opt = opt_state_for(params)
     step = build_train_step(api, TrainStepConfig())
@@ -3883,7 +3926,7 @@ def moe_train(link: dict) -> dict:
     cfg = dataclasses.replace(cfg, remat="none")
     api = get_model(cfg, "cuda")
     fstep = build_functional_train_step(api, TrainStepConfig())
-    meta = dict(TransformerLM(cfg, device="meta").named_parameters())
+    meta = dict(get_model(cfg, "cuda").shell().named_parameters())
     t0 = time.perf_counter()
     args = pytree.tree_map(lambda p: torch.empty_like(p, device="cuda"),
                            (meta, adamw_init(meta)))
@@ -3961,7 +4004,7 @@ def kimi_prefix_and_shared_expert() -> dict:
     then 4 decode steps with finite logits."""
     cfg = dataclasses.replace(get_config(KIMI_ARCH), n_layers=KIMI_LAYERS)
     t0 = time.perf_counter()
-    params = TransformerLM(cfg, device="cuda", generator=torch.Generator(
+    params = get_model(cfg, "cuda").init(torch.Generator(
         device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0,
@@ -4066,6 +4109,466 @@ def moe(link: dict) -> dict:
     for k in ("profile",):
         out["prefill"].pop(k, None)
     log("[moe] " + json.dumps(out))
+    return out
+
+
+# ----------------------------------------------------------------------
+# the whisper slice: whisper-base at full width
+# ----------------------------------------------------------------------
+def whisper_small_checks() -> dict:
+    """Reduced whisper in fp32 (2 encoder layers, 1 decoder layer) at B 2
+    x WHISPER_SMALL_S frames, the same weights on both devices: the card's
+    forward through the flash kernel (one launch per decoder layer)
+    against the CPU's plain forward at 5e-4; 6 decode steps, each device
+    on its own encoder output, at 1e-4; one train step, loss and grad norm
+    at rtol 1e-4, parameters at rtol 2e-2, atol 2e-4."""
+    cfg = get_config(WHISPER_ARCH).reduced()
+    cpu, card = small_models(cfg)
+    api_c = get_model(cfg, "cpu")
+    batch = api_c.input_specs(ShapeSpec("whisper_small", WHISPER_SMALL_S, 2,
+                                        "train"), abstract=False, seed=1)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    fwd = {k: v for k, v in batch.items() if k != "labels"}
+    want = build_prefill_step(api_c)(cpu, fwd)
+    n0 = fa.flash_attention_fwd.launches
+    got = build_prefill_step(get_model(dataclasses.replace(
+        cfg, use_flash_kernel=True), "cuda"))(
+            card, {k: v for k, v in on_card.items() if k != "labels"})
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_fwd.launches - n0
+    out = {"forward_launches": launches,
+           "forward": max_abs_err(got.cpu(), want)}
+    if launches != cfg.n_layers:
+        raise AssertionError(f"the reduced whisper forward launched the "
+                             f"flash kernel {launches} times, not "
+                             f"{cfg.n_layers}")
+    if not torch.allclose(got.cpu(), want, atol=5e-4, rtol=5e-4):
+        raise AssertionError(f"reduced whisper forward: card and CPU differ "
+                             f"by {out['forward']}")
+
+    def steps_on(params, dev):
+        api = get_model(cfg, dev)
+        cache = api.init_cache(2, 8)
+        tok = torch.Generator().manual_seed(1)
+        logits = []
+        with torch.inference_mode():
+            enc = whisper_mod.encode(params, batch["audio_feats"].to(dev),
+                                     cfg)
+            for i in range(6):
+                t = torch.randint(0, cfg.vocab_size, (2, 1), generator=tok)
+                lg, _ = api.decode(params, {"tokens": t.to(dev),
+                                            "enc_out": enc}, cache, i)
+                logits.append(lg.cpu())
+        return logits
+
+    for i, (lg, lc) in enumerate(zip(steps_on(card, "cuda"),
+                                     steps_on(cpu, "cpu"))):
+        out["decode"] = max(out.get("decode", 0.0), max_abs_err(lg, lc))
+        if not torch.allclose(lg, lc, atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"reduced whisper decode step {i}: card and "
+                                 f"CPU differ by {max_abs_err(lg, lc)}")
+    _, _, mc = build_train_step(api_c)(cpu, opt_state_for(cpu), batch)
+    _, _, mg = build_train_step(get_model(cfg, "cuda"))(
+        card, opt_state_for(card), on_card)
+    torch.cuda.synchronize()
+    for key in ("loss", "grad_norm"):
+        if not np.isclose(float(mg[key]), float(mc[key]), rtol=1e-4):
+            raise AssertionError(f"reduced whisper train step {key}: card "
+                                 f"{float(mg[key])}, CPU {float(mc[key])}")
+    want_p = cpu.state_dict()
+    for k, t in card.state_dict().items():
+        if not torch.allclose(t.cpu(), want_p[k], rtol=2e-2, atol=2e-4):
+            raise AssertionError(f"reduced whisper train step: {k} differs "
+                                 f"by {max_abs_err(t.cpu(), want_p[k])}")
+    out["train_loss"] = {"card": float(mg["loss"]), "cpu": float(mc["loss"])}
+    log("[whisper] reduced fp32 card vs CPU (forward 5e-4, decode 1e-4, "
+        "train step): " + json.dumps(out))
+    return out
+
+
+def whisper_batch(cfg, kind: str, seed: int = 0) -> dict:
+    """A full-width batch of WHISPER_B windows: ``input_specs`` frames
+    (normal, seed ``seed``), tokens (and labels) drawn over the vocabulary
+    from numpy ``seed`` (``input_specs`` draws ids under 32)."""
+    api = get_model(cfg, "cuda")
+    batch = api.input_specs(ShapeSpec(f"whisper_{kind}", WHISPER_S,
+                                      WHISPER_B, kind), abstract=False,
+                            seed=seed)
+    rng = np.random.default_rng(seed)
+    for k in ("tokens", "labels"):
+        if k in batch:
+            batch[k] = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, tuple(batch[k].shape),
+                dtype=np.int32)).cuda()
+    return batch
+
+
+def whisper_layers(params, cfg, batch) -> float:
+    """Each decoder layer's causal self-attention on the hidden state the
+    kernel forward feeds it, through the kernel and the plain path: the
+    largest relative difference over the layers."""
+    flash_cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    worst = 0.0
+    with torch.inference_mode():
+        enc_out = whisper_mod.encode(params, batch["audio_feats"], cfg)
+        x = embed_tokens(params["embed"], batch["tokens"]).to(
+            getattr(torch, cfg.dtype))
+        b, s = x.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b,
+                                                                        s)
+        for i in range(cfg.n_layers):
+            p = params["dec_blocks"].at(i)
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            worst = max(worst, rel_max_diff(
+                _attention_mix(p, h, pos, flash_cfg),
+                _attention_mix(p, h, pos, cfg)))
+            x = whisper_mod.decoder_layer(p, x, enc_out, pos, flash_cfg)
+    return worst
+
+
+def whisper_prefill(params, cfg) -> dict:
+    """The full-width prefill (B 16 windows of 1500 frames, 375 tokens)
+    through ``build_prefill_step`` with the flash kernel: the logits'
+    shape and finiteness, one launch per decoder layer counted from 0
+    (none for the encoder or the cross-attention), agreement with the
+    plain attention path end to end in bf16 and per layer, and end to end
+    with the weights widened to fp32 at full depth (PREFILL_REL_TOL)."""
+    flash_cfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    step = build_prefill_step(get_model(flash_cfg, "cuda"))
+    plain_step = build_prefill_step(get_model(cfg, "cuda"))
+    batch = whisper_batch(cfg, "prefill")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd.launches = 0      # the main path: counts from 0
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fa.flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = (WHISPER_B, WHISPER_S // cfg.enc_seq_ratio, cfg.padded_vocab)
+    if tuple(logits.shape) != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"whisper prefill logits {tuple(logits.shape)},"
+                             f" want {want} and finite")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} flash launches in one whisper "
+                             f"forward, want {cfg.n_layers}")
+    plain = plain_step(params, batch)
+    if fa.flash_attention_fwd.launches != launches:
+        raise AssertionError("the plain path launched the kernel")
+    agree = {"bf16": rel_max_diff(logits, plain),
+             "argmax_agreement": float((logits.argmax(-1)
+                                        == plain.argmax(-1)).float().mean()),
+             "bf16_layer": whisper_layers(params, cfg, batch)}
+    del logits, plain
+    wide, cfg32 = widened(params, cfg, "float32")
+    agree["fp32"] = rel_max_diff(
+        build_prefill_step(get_model(dataclasses.replace(
+            cfg32, use_flash_kernel=True), "cuda"))(wide, batch),
+        build_prefill_step(get_model(cfg32, "cuda"))(wide, batch))
+    del wide
+    torch.cuda.empty_cache()
+    log("[whisper] prefill, kernel vs plain path, max |diff| / max |ref|: "
+        + json.dumps(agree))
+    for key, tol in PREFILL_REL_TOL.items():
+        if not agree[key] <= tol:
+            raise AssertionError(f"whisper kernel and plain prefill differ "
+                                 f"({key}): {agree[key]} > {tol}")
+    wall = wall_s(lambda: step(params, batch), 3)
+    plain_wall = wall_s(lambda: plain_step(params, batch), 3)
+    prof = profile_window(lambda: step(params, batch),
+                          KERNEL_NAMES[fa.flash_attention_fwd])
+    for name, (count, _) in prof["named"].items():
+        if count != launches:
+            raise AssertionError(f"the whisper prefill's profile holds "
+                                 f"{count} {name} kernels, not {launches}")
+    out = {"launches": launches, "first_call_s": first_s,
+           "wall_ms": wall * 1e3, "plain_wall_ms": plain_wall * 1e3,
+           "windows_per_s": WHISPER_B / wall,
+           "tokens_per_s": WHISPER_B * want[1] / wall,
+           "max_memory_allocated": peak,
+           "device_kernels": prof["device_kernels"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "device_idle_share": prof["device_idle_share"],
+           "top_kernels_ms": prof["top_kernels_ms"],
+           "kernel_device_ms": sum(
+               ms for _, ms in prof["named"].values()) / launches, **agree}
+    log(f"[whisper] prefill B={WHISPER_B} frames={WHISPER_S} tokens="
+        f"{want[1]} bf16, kernel path: " + json.dumps(out))
+    return out
+
+
+def whisper_greedy(params, cfg, audio, steps: int) -> tuple:
+    """Encode ``audio`` once, then ``steps`` greedy steps of
+    ``build_serve_step`` from an empty cache of WHISPER_MAX_LEN positions
+    (the first tokens from numpy seed 2) on batches shaped as
+    ``decode_input_specs`` gives them.  Returns the encoder output, the
+    tokens fed, each step's logits and each step's milliseconds."""
+    api = get_model(cfg, "cuda")
+    step = build_serve_step(api)
+    specs = api.decode_input_specs(ShapeSpec(
+        "whisper_decode", WHISPER_S * cfg.enc_seq_ratio, WHISPER_B,
+        "decode"))
+    with torch.inference_mode():
+        enc_out = whisper_mod.encode(params, audio, cfg)
+    cache = api.init_cache(WHISPER_B, WHISPER_MAX_LEN)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (WHISPER_B, 1), dtype=np.int32)).cuda()
+    fed, logits, ms = [], [], []
+    for i in range(steps):
+        batch = {"tokens": tok, "enc_out": enc_out}
+        if i == 0 and {k: (tuple(v.shape), v.dtype) for k, v in
+                       batch.items()} != {k: (tuple(v.shape), v.dtype)
+                                          for k, v in specs.items()}:
+            raise AssertionError("the decode batch is not shaped as "
+                                 "decode_input_specs gives it")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, batch, i)
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fed.append(batch["tokens"])
+        logits.append(lg[:, 0])
+    return enc_out, torch.cat(fed, 1), torch.stack(logits, 1), ms, cache
+
+
+def whisper_decode(params, cfg) -> dict:
+    """Full-width decode at B 16: WHISPER_DECODE_STEPS greedy steps in bf16
+    (ms a step, tokens/s, and a profiled window of 4 more steps: kernels a
+    step, busy ms, idle share), then the same in fp32, whose steps' logits
+    must equal the decoder's forward over the tokens fed within
+    DECODE_FORWARD_TOL (allclose rtol = atol)."""
+    audio = whisper_batch(cfg, "prefill", seed=1)["audio_feats"]
+    enc_out, _, _, ms, cache = whisper_greedy(params, cfg, audio,
+                                              WHISPER_DECODE_STEPS)
+    step = build_serve_step(get_model(cfg, "cuda"))
+    tok = torch.zeros((WHISPER_B, 1), dtype=torch.int32, device="cuda")
+    n = WHISPER_DECODE_STEPS
+
+    def run():
+        for i in range(4):
+            step(params, cache, {"tokens": tok, "enc_out": enc_out}, n + i)
+
+    prof = profile_window(run)
+    med = statistics.median(ms[1:])
+    out = {"steps": n, "first_step_ms": ms[0], "median_step_ms": med,
+           "tokens_per_s": WHISPER_B / (med * 1e-3),
+           "profiled_wall_ms_per_step": prof["wall_ms"] / 4,
+           "device_kernels_per_step": prof["device_kernels"] / 4,
+           "device_busy_ms_per_step": prof["device_busy_ms"] / 4,
+           "device_idle_share": prof["device_idle_share"],
+           "top_kernels_ms": prof["top_kernels_ms"]}
+    del enc_out, cache
+    wide, cfg32 = widened(params, cfg, "float32")
+    enc32, fed, logits, _, _ = whisper_greedy(wide, cfg32, audio, n)
+    with torch.inference_mode():
+        par = whisper_mod.decode_train(wide, fed, enc32, cfg32)
+    out["fp32_decode_vs_forward"] = max_abs_err(logits, par)
+    log(f"[whisper] decode B={WHISPER_B} bf16: " + json.dumps(out))
+    if not torch.allclose(logits, par, rtol=DECODE_FORWARD_TOL,
+                          atol=DECODE_FORWARD_TOL):
+        raise AssertionError(f"fp32 whisper decode steps differ from the "
+                             f"forward by {out['fp32_decode_vs_forward']}")
+    del wide, enc32, logits, par
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train(params, cfg) -> dict:
+    """WHISPER_TRAIN_STEPS steps of ``build_train_step`` (AdamW lr 1e-4,
+    block remat, the plain attention path) on one fixed full-width batch,
+    updating ``params`` in place: finite losses, the last below the first;
+    the cross-attention biases, which the loss never reads, exactly zero
+    after the steps, and the self-attention biases moved (the control)."""
+    api = get_model(cfg, "cuda")
+    batch = whisper_batch(cfg, "train")
+    step = build_train_step(api, TrainStepConfig())
+    opt = opt_state_for(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        _, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    med = statistics.median(step_ms)
+    state = params.state_dict()
+    nonzero = {k: int(torch.count_nonzero(state[f"dec_blocks.{k}"]))
+               for k in ("xattn.bq", "xattn.bk", "xattn.bv", "attn.bq")}
+    out = {"losses": losses, "step_ms": step_ms, "median_step_ms": med,
+           "windows_per_s": WHISPER_B / (med * 1e-3),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "nonzero_biases": nonzero}
+    log(f"[whisper] train B={WHISPER_B} frames={WHISPER_S} bf16, "
+        f"{WHISPER_TRAIN_STEPS} steps: " + json.dumps(out))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper train losses {losses}: not finite "
+                             "or not falling")
+    if any(nonzero[k] for k in ("xattn.bq", "xattn.bk", "xattn.bv")):
+        raise AssertionError(f"a cross-attention bias moved: {nonzero}")
+    if not nonzero["attn.bq"]:
+        raise AssertionError("the self-attention biases did not train")
+    del opt
+    return out
+
+
+def _most_read(seq, shape) -> str:
+    """The activation storage of ``shape`` that the most operators read:
+    the encoder's output, which each decoder layer's cross-attention
+    reads forward and backward."""
+    reads = collections.Counter()
+    for op in seq.operators:
+        for t in set(op.inputs):
+            spec = seq.tensors[t]
+            if (spec.kind.value == "activation"
+                    and tuple(spec.shape) == tuple(shape)):
+                reads[t] += 1
+    return reads.most_common(1)[0][0]
+
+
+def whisper_tensile(link: dict) -> dict:
+    """The functional train step without remat at full width (B 16 x 1500
+    frames) captured on fake tensors; its operator latencies measured by
+    one unscheduled run, a second unscheduled run timed; planned by
+    ``tensile`` at WHISPER_BUDGET of its planned peak and run on
+    ``FxExecutor`` (async swaps) from the same state: bit-identical to the
+    unscheduled step, the allocator within ALLOC_LEDGER_TOL of the ledger
+    peak, at least one swap-out.  Also what the plan does with the
+    encoder's output."""
+    cfg = dataclasses.replace(get_config(WHISPER_ARCH), remat="none")
+    api = get_model(cfg, "cuda")
+    batch = whisper_batch(cfg, "train")
+    fstep = build_functional_train_step(api, TrainStepConfig())
+    meta = dict(api.shell().named_parameters())
+    t0 = time.perf_counter()
+    args = pytree.tree_map(lambda p: torch.empty_like(p, device="cuda"),
+                           (meta, adamw_init(meta)))
+    seq, gm = capture_train_step(fstep, *args, batch,
+                                 cost_model=CostModel(calibrate_cuda()))
+    capture_s = time.perf_counter() - t0
+    del args
+    profile = MachineProfile(host_link_bw=link["host_link_bw"],
+                             host_link_latency=link["host_link_latency"],
+                             dma_batch_overhead=link["dma_batch_overhead"])
+    n_state = 1 + 3 * len(meta)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    unsched = []
+    for measure in (True, False):
+        ex0 = FxExecutor(gm, seq, None, engine=MemoryEngine(profile),
+                         measure_latency=measure)
+        outs, wall_u, alloc_u, ledger_u = _run_state(
+            ex0, _tensile_state(cfg, batch), base)
+        unsched.append({"wall_s": wall_u, "max_memory_allocated": alloc_u,
+                        "ledger_peak": ledger_u})
+        if measure:
+            seq.set_latencies(ex0.stats.op_latencies)
+        else:
+            ref = _host_copy(outs)
+        del ex0, outs
+        torch.cuda.empty_cache()
+    unsched_peak = simulate([seq], None, profile, iterations=1,
+                            transfer_mode="sync").peak_bytes
+    budget = int(WHISPER_BUDGET * unsched_peak)
+    res, plan_s = _plan(seq, profile, "tensile", budget)
+    plan = res.plans[seq.job_id]
+    enc_out = _most_read(seq, (WHISPER_B, WHISPER_S, cfg.d_model))
+    enc_events = collections.Counter(e.event_type.value for e in plan.events
+                                     if e.tensor_id == enc_out)
+    ex = FxExecutor(gm, seq, plan, async_swap=True,
+                    engine=MemoryEngine(profile))
+    outs, wall_s_, alloc, ledger = _run_state(ex, _tensile_state(cfg, batch),
+                                              base)
+    diff = [i for i, (a, b) in enumerate(zip(outs, ref))
+            if not torch.equal(a.cpu(), b)]
+    u = unsched[1]
+    out = {"operators": len(seq.operators), "tensors": len(seq.tensors),
+           "capture_s": capture_s, "planning_s": plan_s,
+           "planned_unscheduled_peak": unsched_peak, "budget": budget,
+           "predicted_peak": res.final_report.peak_bytes,
+           "predicted_MSR": 1 - res.final_report.peak_bytes / unsched_peak,
+           "plan_events": _event_counts(seq, plan),
+           "unscheduled": unsched,
+           "scheduled": {"wall_s": wall_s_, "max_memory_allocated": alloc,
+                         "ledger_peak": ledger,
+                         "swap_outs": ex.stats.swap_out_count,
+                         "swap_ins": ex.stats.swap_in_count,
+                         "recomputes": ex.stats.recompute_count},
+           "measured_MSR": 1 - alloc / u["max_memory_allocated"],
+           "measured_EOR": wall_s_ / u["wall_s"] - 1,
+           "enc_out": {"tensor": enc_out,
+                       "bytes": seq.tensors[enc_out].size_bytes,
+                       "readers": sum(enc_out in op.inputs
+                                      for op in seq.operators),
+                       "plan_events": dict(enc_events),
+                       "treated": ("recomputed" if enc_events["recompute"]
+                                   else "swapped" if enc_events["swap_out"]
+                                   else "kept")},
+           "loss": float(outs[n_state]), "outputs_differing": len(diff)}
+    del ex, outs, ref
+    torch.cuda.empty_cache()
+    log("[whisper] tensile: " + json.dumps(out))
+    if diff:
+        raise AssertionError(f"the scheduled whisper step differs from the "
+                             f"unscheduled step in outputs {diff[:8]}")
+    if abs(alloc / ledger - 1) > ALLOC_LEDGER_TOL:
+        raise AssertionError(f"allocator peak {alloc} B is off the ledger "
+                             f"peak {ledger} B by more than "
+                             f"{ALLOC_LEDGER_TOL:.0%}")
+    if out["scheduled"]["swap_outs"] < 1:
+        raise AssertionError("the scheduled whisper step swapped nothing "
+                             "out")
+    return out
+
+
+def whisper(link: dict) -> dict:
+    """The whisper slice on the card (see the module docstring); runs in a
+    fresh process, on an empty card."""
+    deterministic()
+    log(card_line())
+    t_phase = time.perf_counter()
+    flash_errs = timed("check_flash_whisper", check_flash,
+                       [FLASH_WHISPER, FLASH_WHISPER_FP32])
+    out = {"flash": timed("time_flash_whisper", time_flash, FLASH_WHISPER),
+           "flash_max_abs_err": {"bf16": flash_errs[FLASH_WHISPER],
+                                 "fp32": flash_errs[FLASH_WHISPER_FP32]}}
+    out["small"] = timed("whisper_small_checks", whisper_small_checks)
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    params = get_model(cfg, "cuda").init(torch.Generator(
+        device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out["draw_s"] = time.perf_counter() - t0
+    out["param_count"] = cfg.param_count()
+    out["params_bytes"] = sum(p.numel() * p.element_size()
+                              for p in params.parameters())
+    out["prefill"] = timed("whisper_prefill", whisper_prefill, params, cfg)
+    out["decode"] = timed("whisper_decode", whisper_decode, params, cfg)
+    out["train"] = timed("whisper_train", whisper_train, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    out["tensile"] = timed("whisper_tensile", whisper_tensile, link)
+    root = tempfile.mkdtemp(prefix="whisper-launcher-")
+    try:
+        args = ["--arch", WHISPER_ARCH, "--full", "--batch", str(WHISPER_B),
+                "--seq", str(WHISPER_S), "--steps", "3", "--ckpt-dir", root,
+                "--log-every", "1"]
+        rc, main_s, main_peak = _peak_of(lambda: launch_train.main(args),
+                                         "cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["main"] = {"args": args, "rc": rc, "s": main_s,
+                   "max_memory_allocated": main_peak}
+    if rc != 0:
+        raise AssertionError(f"launch.train.main --arch {WHISPER_ARCH} "
+                             f"returned {rc}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("[whisper] " + json.dumps({k: out[k] for k in (
+        "draw_s", "param_count", "params_bytes", "main", "phase_s")}))
     return out
 
 
@@ -4295,6 +4798,11 @@ def main() -> int:
         "the card")
     mo = timed("moe", lambda: in_fresh_process("moe", link, timeout=900))
 
+    # the whisper slice, in a fresh process: whisper-base at full width on
+    # 30-s windows, prefilled, decoded, trained and run under TENSILE
+    wh = timed("whisper", lambda: in_fresh_process("whisper", link,
+                                                   timeout=600))
+
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
         tl = kv_times["tinyllama"]
@@ -4341,6 +4849,13 @@ def main() -> int:
             "tflops")}, "device_ms": mo["prefill"]["kernel_device_ms"],
             "max_abs_err": mo["flash_max_abs_err"]["moonlight"],
             "shape": list(FLASH_MOONLIGHT[:6]) + ["bfloat16", "causal"]},
+        "launches_whisper_prefill": wh["prefill"]["launches"],
+        "whisper": {**{k: wh["flash"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops")}, "device_ms": wh["prefill"]["kernel_device_ms"],
+            "max_abs_err": wh["flash_max_abs_err"]["bf16"],
+            "max_abs_err_fp32": wh["flash_max_abs_err"]["fp32"],
+            "shape": list(FLASH_WHISPER[:6]) + ["bfloat16", "causal"]},
         "launches_kimi_prefill": mo["kimi"]["flash_launches"],
         "kimi_d112": {**{k: mo["flash_kimi"][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -4399,7 +4914,8 @@ def main() -> int:
     return 0
 
 
-FRESH_PHASES = {"moe": moe,
+FRESH_PHASES = {"whisper": whisper,
+                "moe": moe,
                 "train_launcher": train_launcher,
                 "experience_cold": experience_cold,
                 "experience_warm": experience_warm,

@@ -1,7 +1,7 @@
 """Weights and optimizer state from the JAX package into the port.
 
 ``params_from_jax`` takes the JAX engine's parameter tree as numpy arrays
-(``jax.tree.map(np.asarray, params)``, with ``blocks`` stacked on axis 0)
+(``jax.tree.map(np.asarray, params)``, with layer stacks on axis 0)
 and returns the port's module holding the same values, so both packages
 compute the same function.  ``adam_state_from_jax`` does the same for the
 reference's ``AdamState``, and ``latency_mlp_from_jax`` for the weights of
@@ -18,7 +18,7 @@ import torch
 
 from .core.cost_model import LatencyMLP
 from .device import resolve_device
-from .models.transformer import TransformerLM
+from .models.registry import get_model
 from .optim.adam import AdamState
 
 
@@ -49,12 +49,14 @@ def tree_from_numpy(np_tree: Any, device=None) -> Any:
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg, device=None
-                    ) -> TransformerLM:
-    """A :class:`TransformerLM` for ``cfg`` whose parameters are the arrays
-    of ``np_tree``, placed on ``device`` (default ``cuda``).  Raises if a
-    key is missing or extra, or a shape differs."""
+                    ) -> torch.nn.Module:
+    """The parameter module that ``cfg``'s API builds (a
+    :class:`TransformerLM` or, for an encoder-decoder, a
+    :class:`WhisperModel`) whose parameters are the arrays of ``np_tree``,
+    placed on ``device`` (default ``cuda``).  Raises if a key is missing or
+    extra, or a shape differs."""
     device = resolve_device(device)
-    model = TransformerLM(cfg, device="meta")
+    model = get_model(cfg, device).shell()
     state = {k: _tensor(v).to(device) for k, v in _flatten(np_tree).items()}
     model.load_state_dict(state, strict=True, assign=True)
     for p in model.parameters():
@@ -62,7 +64,7 @@ def params_from_jax(np_tree: Dict[str, Any], cfg, device=None
     return model
 
 
-def adam_state_from_jax(np_state, model: TransformerLM) -> AdamState:
+def adam_state_from_jax(np_state, model: torch.nn.Module) -> AdamState:
     """The port's :class:`AdamState` for ``model`` holding the values of the
     reference's ``AdamState`` given as numpy (``jax.tree.map(np.asarray,
     state)``), on the model's device, keyed by parameter name; its

@@ -36,7 +36,9 @@ Two swap modes:
              for the compute stream, so a transfer starts when its trigger
              op has finished.  A swap-out's device copy is retired (ledger
              free, dropped) at the first poll point where its event has
-             completed, never before; a prefetch is awaited on the device
+             completed, never before; one that leaves the store earlier
+             (released, or replaced by an update) stays booked under
+             ``ON_WIRE`` until then.  A prefetch is awaited on the device
              (``wait_event``) before its consumer.  The host thread runs at
              most ``RUN_AHEAD`` operators ahead of the card, so poll points
              see completions near the time the plan expects them.
@@ -139,6 +141,9 @@ class BudgetExceededError(RuntimeError):
 # higher and steadier (on the H100 the routes cross between 1.06 and
 # 2.1 MB of packed buffer: PERF.md, section 6).
 ZERO_COPY_MAX_BYTES = 1 << 20
+# the ledger key of a device copy that left the store (released, or
+# replaced by an aliased update) while its swap-out was still on the wire
+ON_WIRE = "on-wire:"
 
 
 def empty_unfilled(size, stride, dtype: torch.dtype,
@@ -439,6 +444,8 @@ class FxExecutor:
     def _put_device(self, tid: str, val: torch.Tensor) -> None:
         st = self._st(tid)
         if st in self.device:
+            if self.device[st] is not val:
+                self._book_on_wire(st)
             self.device[st] = val  # in-place overwrite (aliased update)
             return
         self.device[st] = val
@@ -450,8 +457,20 @@ class FxExecutor:
             if self.async_exec is not None:
                 # a prefetch into this storage may still be on the wire
                 self.async_exec.wait("in:" + st)
+            self._book_on_wire(st)
             self.device.pop(st)
             self.accountant.free(self.ctx.job_id, st)
+
+    def _book_on_wire(self, st: str) -> None:
+        """The device value of ``st`` leaves the store while its swap-out
+        reads it on the copy stream: the pending swap-out holds that memory
+        until its copy lands, so the ledger keeps its bytes (under
+        ``ON_WIRE``) until ``_retire_out``."""
+        pending = self._pending_out.get(st)
+        if pending is not None and pending[2] is self.device[st]:
+            self.accountant.alloc(self.ctx.job_id, ON_WIRE + st,
+                                  self.accountant.resident_bytes(
+                                      self.ctx.job_id, st))
 
     def _value(self, n: torch.fx.Node) -> Any:
         """The value of graph node ``n``: an owner's from the device store,
@@ -648,6 +667,7 @@ class FxExecutor:
         count.  If an aliased update replaced the device value while the
         copy was on the wire, the host copy is stale: it is dropped and
         the new value stays."""
+        self.accountant.free(self.ctx.job_id, ON_WIRE + st)
         if val is not None and st in self.device \
                 and self.device[st] is not val:
             self._hold(self.host.pop(st, None))

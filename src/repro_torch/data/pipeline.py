@@ -12,12 +12,13 @@ Sources: synthetic LM token stream (default — zipfian tokens with a simple
 Markov structure so the loss actually decreases), or a memory-mapped token
 file (np.memmap) for real corpora.
 
-Two departures from the reference, both about resuming: the stream's
-iterator yields the batch of ``self.step`` as it stands when the batch is
-asked for, so after ``load_state_dict`` the next batch is the loaded
-step's (the reference's generator yields the step after it); and
+Three departures from the reference.  Two are about resuming: the
+stream's iterator yields the batch of ``self.step`` as it stands when the
+batch is asked for, so after ``load_state_dict`` the next batch is the
+loaded step's (the reference's generator yields the step after it); and
 ``Prefetcher.seek`` drops the batches already prefetched and restarts
-from a loaded data state.  ``to_device`` moves a numpy batch onto a card
+from a loaded data state.  The third: ``Prefetcher.close`` waits for its
+worker to stop.  ``to_device`` moves a numpy batch onto a card
 through pinned memory without blocking.
 """
 from __future__ import annotations
@@ -166,7 +167,6 @@ class Prefetcher:
         """Resume at a loaded data state: stop the worker, drop what it
         prefetched, load the state into the stream and start again."""
         self.close()
-        self.thread.join()
         while not self.q.empty():
             self.q.get_nowait()
         self.stream.load_state_dict(data_state)
@@ -179,7 +179,11 @@ class Prefetcher:
         return self
 
     def close(self):
+        """Stop the worker and wait for it: a daemon worker left making a
+        batch could still be in torch's C++ code when the interpreter
+        exits, which aborts the process."""
         self._stop.set()
+        self.thread.join()
 
 
 def to_device(device=None):

@@ -57,7 +57,12 @@ class TrainStepConfig:
 
 
 def _grads(loss: torch.Tensor, named: Dict[str, torch.Tensor]):
-    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    """d loss / d each of ``named``.  A leaf the loss never reads gets
+    zeros, as ``jax.grad`` gives it (whisper's cross-attention biases);
+    a leaf it reads gets the same gradient as without that rule."""
+    return dict(zip(named, torch.autograd.grad(
+        loss, list(named.values()), allow_unused=True,
+        materialize_grads=True)))
 
 
 def build_train_step(api, tcfg: Optional[TrainStepConfig] = None):
@@ -140,8 +145,7 @@ def build_functional_train_step(api, tcfg: Optional[TrainStepConfig] = None):
         raise NotImplementedError(
             "the functional train step takes one microbatch, no gradient "
             "compression and no remat policy")
-    from ..models.transformer import TransformerLM
-    shell = _LossOf(api, TransformerLM(api.cfg, device="meta"))
+    shell = _LossOf(api, api.shell())
 
     def train_step(params: Dict[str, torch.Tensor], opt_state: AdamState,
                    batch):
@@ -150,8 +154,7 @@ def build_functional_train_step(api, tcfg: Optional[TrainStepConfig] = None):
         with torch.enable_grad():
             loss = torch.func.functional_call(
                 shell, {"lm." + k: v for k, v in leaves.items()}, (batch,))
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
+            grads = _grads(loss, leaves)
         new_params, new_opt = adamw_step(
             params, grads, opt_state, lr=tcfg.learning_rate,
             weight_decay=tcfg.weight_decay,

@@ -8,8 +8,10 @@
   hand-written CUDA kernel, selected with ``cfg.use_flash_kernel`` for
   causal attention; forward only.
 
-Decode: one-token query against a KV cache.  Cross-attention (whisper)
-is not ported yet.
+Decode: one-token query against a KV cache.  Cross-attention
+(``cross_attention_block``, whisper's decoder): queries from the decoder,
+keys and values from the encoder's output, on ``attend_full`` or
+``attend_chunked`` as the reference has it.
 """
 from __future__ import annotations
 
@@ -177,6 +179,22 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
     else:
         out = attend_full(q, k, v, causal=causal,
                           sliding_window=cfg.sliding_window)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_attention_block(p, x: torch.Tensor, ctx: torch.Tensor, *,
+                          cfg) -> torch.Tensor:
+    """Decoder cross-attention: queries from x (B,Sq,D_model), keys and
+    values from ctx (B,Skv,D_model).  No rope and no bias, as the
+    reference (which never reads ``bq``/``bk``/``bv`` here, so their
+    gradients are zeros)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", ctx, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", ctx, p["wv"])
+    if max(q.shape[1], k.shape[1]) > 2 * cfg.attn_chunk:
+        out = attend_chunked(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    else:
+        out = attend_full(q, k, v, causal=False)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 

@@ -77,7 +77,9 @@ class TransformerLM(ParamTree):
                  = None):
         super().__init__()
         if cfg.enc_dec:
-            raise NotImplementedError("encoder-decoder models are not ported")
+            raise ValueError(
+                "an encoder-decoder config builds models/whisper.py's "
+                "WhisperModel (get_model dispatches on cfg.enc_dec)")
         dtype = getattr(torch, cfg.dtype)
         gen = generator
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model,

@@ -17,6 +17,7 @@ the exact run's (Adam's step is at most lr in size; on the LM step, plus
 the fp32 rounding of the parameter), and its packed host buffers hold the
 plain packing bit for bit.
 """
+import collections
 import dataclasses
 
 import jax
@@ -157,6 +158,61 @@ def test_async_mode_batches_transfers_and_matches(mlp):
     assert all(len({k.split(":")[0] for k in b}) == 1 for b in launches)
     assert all(len(b) <= tc.AsyncSwapExecutor.MAX_BATCH for b in launches)
     assert not ex.async_exec.inflight
+
+
+def test_ledger_books_a_released_swap_out_until_it_lands(mlp, monkeypatch):
+    """An async swap-out's copy holds its device tensor until it lands,
+    also when the storage leaves the store first (here: released at its
+    last use): the ledger keeps those bytes booked until the copy is
+    retired.  The plan swaps out the activation with the longest live
+    range right after its producer.  On the CPU a copy lands at issue, so
+    here each lands only after as many polls as that range spans, as a
+    copy queued on a busy copy stream does; at every poll, before it
+    retires anything, the ledger must cover the store's storages and
+    every pending copy's tensor that the store no longer holds.  On a card
+    the ledger freed them at the release: 1.25 GB under the allocator in
+    whisper's scheduled step."""
+    seq = mlp["seq"]
+    tid = max((t for t, spec in seq.tensors.items()
+               if spec.kind is tc.TensorKind.ACTIVATION
+               and seq.tga(t) is not None),
+              key=lambda t: seq.last_access(t).op_idx - seq.tga(t).op_idx)
+    p, u = seq.tga(tid).op_idx, seq.last_access(tid).op_idx
+    plan = tc.SchedulingPlan(seq.job_id)
+    plan.add(tc.ScheduleEvent(tc.EventType.SWAP_OUT, tid, seq.job_id,
+                              trigger_op=p, delta=0.0, start=seq.op_end[p],
+                              end=seq.op_end[p],
+                              size_bytes=seq.tensors[tid].size_bytes))
+    polls, seen, blocking = collections.Counter(), [], [False]
+    done = executor.Transfer.done
+    monkeypatch.setattr(executor.Transfer, "done", lambda t: done(t) and (
+        blocking[0] or polls[t.key] > u - p))
+    poll = tc.FxExecutor._poll_swap_outs
+
+    def checked(self, block=False):
+        job = self.ctx.job_id
+        held = sum(self.accountant.resident_bytes(job, st)
+                   for st in self.device)
+        off_store = [st for st, (_, _, val) in self._pending_out.items()
+                     if self.device.get(st) is not val]
+        held += sum(self.ctx.size_of(st) for st in off_store)
+        seen.extend(off_store)
+        assert self.accountant.job_bytes(job) >= held, off_store
+        for t, _, _ in self._pending_out.values():
+            polls[t.key] += 1
+        blocking[0] = block
+        try:
+            return poll(self, block)
+        finally:
+            blocking[0] = False
+
+    monkeypatch.setattr(tc.FxExecutor, "_poll_swap_outs", checked)
+    ex, _, out = _exec(mlp, plan, async_swap=True)
+    assert _equal(out, mlp["unsched"])
+    assert seen and set(seen) == {tid}
+    assert ex.stats.swap_out_count == 1
+    assert not any(k.startswith(executor.ON_WIRE)
+                   for _, k in ex.accountant._resident)
 
 
 def test_recompute_replays_the_producer(mlp):

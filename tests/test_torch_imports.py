@@ -16,7 +16,8 @@ from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # the TENSILE loop's, the SSM slice's, the multi-job runtime's, the
-# experience plane's, the training launcher's and the MoE slice's modules:
+# experience plane's, the training launcher's, the MoE slice's and the
+# whisper slice's modules:
 # each must be among those walked and checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
@@ -28,7 +29,8 @@ TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.multiplexer", "service.jobspec", "obs.events", "core.experience",
     "obs.metrics", "obs.drift", "core.integration", "optim.compression",
     "data.pipeline", "checkpoint.manager", "runtime.stragglers",
-    "runtime.fault_tolerance", "launch.train", "models.moe")]
+    "runtime.fault_tolerance", "launch.train", "models.moe",
+    "models.whisper")]
 
 
 def test_port_and_chip_smoke_import_no_jax():

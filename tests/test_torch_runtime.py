@@ -16,6 +16,7 @@ batch after the loaded step once ``load_state_dict`` has run, so a
 restart replays one batch late; the port's yields the loaded step's, and
 its ``Prefetcher`` drops what it prefetched (``seek``).  A run that fails
 and restarts ends with the state of the run that did not, bit for bit.
+Another: the port's ``Prefetcher.close`` waits for its worker.
 """
 import json
 import os
@@ -101,6 +102,26 @@ def test_prefetcher_yields_the_stream_in_order_and_seeks():
                               stream.batch_at(2)["tokens"])
     finally:
         pf.close()
+
+
+def test_prefetcher_close_waits_for_its_worker():
+    """``close`` returns once the worker has stopped, even while it is
+    making a batch: a daemon worker left in torch's C++ code at
+    interpreter exit aborted one of eight runs of ``launch.train.main`` on
+    reduced whisper (exit code 134)."""
+    import threading
+    _, tc = _cfg()
+    making = threading.Event()
+
+    def slow(batch):
+        making.set()
+        threading.Event().wait(0.5)
+        return pipeline.to_device("cpu")(batch)
+
+    pf = pipeline.Prefetcher(pipeline.TokenStream(tc), to_device=slow)
+    assert making.wait(5)
+    pf.close()
+    assert not pf.thread.is_alive()
 
 
 # ------------------------------------------------------------ checkpoints
