@@ -17,7 +17,7 @@ Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
    must reproduce the golden tokens bit for bit, with no OOM, with
    evictions, and through both kernels, one launch per batched transfer;
    one batched 2-slot restore of each model is profiled in a fresh process
-   (``profile_restore``).
+   (``profile_restore``, both models in one).
 2. the LM forward and training: the flash-attention kernel against its
    plain version at the reference's sweep, its bf16 twins (the tensor-core
    path at every padded head dim) and the prefill's shape, two calls
@@ -100,7 +100,7 @@ Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
    the same store, with no explicit cost model (it starts from the
    calibration A's run stored), runs job B (B 2, 1 iteration, seed 1)
    likewise; then a ``LatencyMLP`` is fitted on the card to A's measured
-   operators and A is captured again with it.  ``experience_warm``: a new controller
+   operators.  ``experience_warm``: a new controller
    over the store with no explicit cost model captures A, predicts its
    peak and runs it at the cold capacity; then the ``peak`` policy splits
    A and B with and without the store's priors (host only).  Gates: the
@@ -116,24 +116,57 @@ Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
    for its swap-outs, or swaps out more, where a plan exceeds the slice or
    its model misjudges the card); the predictor's loss falls and its R² is
    finite.
-7. The training launcher (``train_launcher``, in a fresh process), B 4,
-   S 1024, TENSILE_LAYERS of the 22 layers: the launcher's train step captured on fake tensors and
-   planned by ``schedule_for_budget`` at LAUNCHER_BUDGET of its planned
-   peak; under ``make_remat_policy`` of those decisions the loss and
-   gradients must equal the block remat step's bit for bit; one step with
-   the moments in pinned host memory (``offload_opt_state``) must give
-   the on-card step's parameters and moments bit for bit and save at
-   least 0.8 of the moments' bytes of the card's allocator peak; int8
-   error-feedback gradients on one batch, whose loss must fall, whose
-   residual must be finite and not zero, and whose compression call on
-   the card must equal the CPU's bit for bit; six steps of
-   ``resilient_train_loop`` through the ``Prefetcher`` with a checkpoint
+   Then the service plane (``service``): this process drops three jobs into
+   the inbox of a service root outside the checkout with a
+   ``ServiceClient`` (A, the cold run's job, 1 iteration; C, the step at B
+   3, which the store does not know; S, ``multi_job``'s serve job) and a
+   drain request, before the warm run; after its gates a
+   ``SchedulerDaemon`` in the warm run's process (``service_daemon``; A's
+   capture is that run's graph and sequence with a fresh state), its
+   ``GlobalController`` on the card over the experience store (the measured
+   link, ``CostModel(calibrate_cuda())`` with the LatencyMLP
+   ``experience_cold`` fitted attached, so C's capture prices each operator
+   through it; ``tensile+autoscale``, the ``priority`` policy, each slice
+   held), runs them: A's slice its cold capacity and S's half its KV demand
+   (``multi_job``'s capture of S), the capacity their sum (or what
+   admission needs for both predicted peaks).  A ``TraceRecorder`` rides on
+   the daemon and the controller's engine; the daemon's admission spans
+   time each job's capture and prediction.  Then a crashed daemon's queue
+   (one QUEUED, one ADMITTED and one RUNNING MLP job) is recovered on the
+   same root by a new daemon.  Gates: through the client, A and S DONE, C
+   REJECTED, the recovered jobs DONE; A admitted warm (source
+   ``experience``, the peak the store holds), C cold (``cost-model``, its
+   no-free bound above the capacity) after a capture whose LatencyMLP
+   predictions give a finite, positive iteration time, S at its KV demand;
+   A's final state bit-identical to its solo unscheduled run; the global
+   ledger peak within the capacity and the allocator's within 1.05 x; S's
+   tokens the golden run's, with evictions, no OOM and both KV kernels
+   launched (counted from 0 in the daemon's process); the orphan re-queued
+   exactly once; ``metrics.prom`` parsing with the core gauges and S's
+   tokens/s; the trace valid, with A's op spans (one per operator per
+   iteration), DMA transfer spans and a ``job:<state>`` instant for every
+   transition, and a ``capture`` span for C and S and a ``predict`` span
+   for each of the three.
+7. The training launcher (``train_launcher``, in a fresh process), B 4, S
+   1024, LAUNCHER_LAYERS of the 22 layers: the launcher's train step
+   captured on fake tensors and planned by ``schedule_for_budget`` at
+   LAUNCHER_BUDGET of its planned peak; under ``make_remat_policy`` of
+   those decisions the loss and gradients must equal the block remat step's
+   bit for bit; one step with the moments in pinned host memory
+   (``offload_opt_state``) must give the on-card step's parameters and
+   moments bit for bit and save at least 0.8 of the moments' bytes of the
+   card's allocator peak; int8 error-feedback gradients on one batch, whose
+   loss must fall, whose residual must be finite and not zero, and whose
+   compression call on the card must equal the CPU's bit for bit; six steps
+   of ``resilient_train_loop`` through the ``Prefetcher`` with a checkpoint
    at step 3 (``keep`` 1, in a temporary directory outside the checkout,
    the free disk checked first) and a failure injected once at step 4,
-   which must restart once, feed the stream's batches in order and end
-   with the state of an unbroken run (sha256); then
-   ``launch.train.main`` itself (``--full``, the same budget, int8
-   gradients) for LAUNCHER_MAIN_STEPS steps.
+   which must restart once, feed the stream's batches in order and end with
+   the state of an unbroken run (sha256); then ``launch.train.main`` itself
+   (the reduced width at LAUNCHER_MAIN_SEQ tokens, int8 gradients, a
+   TENSILE budget of LAUNCHER_BUDGET of the planned peak of that step's
+   capture: ``main`` captures, schedules and prints its decisions, which
+   are gated) for LAUNCHER_MAIN_STEPS steps.
 8. The MoE slice (``moe``, in a fresh process): reduced fp32 Moonlight,
    Kimi-K2 and Jamba (the SSD and flash kernels in one hybrid block),
    decode, forward and train step card-vs-CPU with every MoE layer's
@@ -184,6 +217,7 @@ import collections
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -206,9 +240,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.core import (BudgetArbiter, CostModel,  # noqa: E402
-                              DeviceCalibration, ExperienceStore, FxExecutor,
-                              GlobalController, LatencyMLP, MachineProfile,
+from repro_torch.core import (BudgetArbiter, CapturedJob,  # noqa: E402
+                              CostModel, DeviceCalibration, ExperienceStore,
+                              FxExecutor, GlobalController, LatencyMLP,
+                              MachineProfile,
                               MemoryEngine, device_identity, fingerprint,
                               MemoryScheduler, Pipeline, SchedulerConfig,
                               SchedulingPlan, analyze,
@@ -247,13 +282,17 @@ from repro_torch.models.layers import embed_tokens, rmsnorm  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.ssm import mamba2_block  # noqa: E402
 from repro_torch.models import whisper as whisper_mod  # noqa: E402
-from repro_torch.obs import (DriftMonitor, EventLog,  # noqa: E402
-                             MetricsRegistry)
+from repro_torch.obs import (DMA_TID, DriftMonitor, EventLog,  # noqa: E402
+                             MetricsRegistry, TraceRecorder,
+                             parse_metrics_text, summarize_trace,
+                             validate_chrome_trace)
 from repro_torch.optim.adam import adamw_init  # noqa: E402
 from repro_torch.optim.compression import ef_compress_grads  # noqa: E402
 from repro_torch.runtime.fault_tolerance import (  # noqa: E402
     FTConfig, resilient_train_loop)
-from repro_torch.service import JobSpec, ServeParams  # noqa: E402
+from repro_torch.service import (JobRecord, JobSpec,  # noqa: E402
+                                 JobState, JobStore, SchedulerDaemon,
+                                 ServeParams, ServiceClient)
 from repro_torch.service.workloads import (  # noqa: E402
     make_mlp, mlp_numpy, register_serve_workload, register_workload,
     resolve_workload)
@@ -332,15 +371,20 @@ ALLOC_LEDGER_TOL = 0.05
 # time) and B 2, so B's first boundary falls while A runs and its second
 # iteration starts from the state it parked on the host
 MULTI_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 2, 1)}
-# ... at full width and this many of TinyLlama's 22 layers (22 until PR 21:
-# the script's time limit now holds the training launcher's phase too,
-# and the controller's replans grow with the operator count; the
-# experience phases keep 22, where their warm boot is gated)
-CONTROLLER_LAYERS = 11
-# tensile_train and train_launcher's own steps at full width and this many
-# of the 22 layers (all 22 until the MoE phase joined the script, whose
-# time limit now holds it too; ``launch.train.main --full`` keeps all 22)
+# ... at full width and this many of TinyLlama's 22 layers (22, then 11,
+# before the script's time limit held the training launcher's and the
+# service phases too; on a slow host the whole ran 1,388 s at 11; the
+# controller's replans grow with the operator count; the experience
+# phases keep 22, where their warm boot is gated)
+CONTROLLER_LAYERS = 4
+# tensile_train's step at full width and this many of the 22 layers (all
+# 22 until the MoE phase joined the script; at 4 its compressed plan at
+# the tightest budget needs no recompute, which the phase gates)
 TENSILE_LAYERS = 11
+# train_launcher's own steps at full width and this many of the 22 layers
+# (TENSILE_LAYERS before the service phase joined, for the time limit as
+# above); ``launch.train.main`` runs at its reduced width
+LAUNCHER_LAYERS = 4
 MULTI_SLICE = 0.85
 MULTI_SERVE_SLICE = 0.5
 MULTI_PIPELINE = "tensile+autoscale"
@@ -356,14 +400,29 @@ EXPERIENCE_JOBS = {"A": (TRAIN_B, 2, 0), "B": (2, 1, 1)}
 EXPERIENCE_SLICE = MULTI_SLICE
 # the drift monitor's default threshold (obs/drift.py)
 DRIFT_THRESHOLD = 0.15
+# service: the scheduler daemon, in the experience_warm process, over the
+# store the experience phases wrote.  Job A (experience_cold's A) runs this
+# many iterations; job C, the train step at this batch, is a job the store
+# does not know; the daemon's poll interval; the gauges its metrics.prom
+# must carry (the reference's core set and the serve rate)
+SERVICE_A_ITERS = 1
+SERVICE_C_BATCH = 3
+SERVICE_POLL = 0.02
+SERVICE_GAUGES = ("tensile_queue_depth", "tensile_capacity_bytes",
+                  "tensile_reserved_bytes", "tensile_state_transitions_total",
+                  "tensile_jobs", "tensile_replan_count",
+                  "tensile_serve_tokens_per_sec")
 # train_launcher: TENSILE's decisions for the launcher's step at this
 # fraction of its capture's planned peak; the restart run's steps, its
 # checkpoint period and the step that fails once; the int8 run's steps on
-# one batch; the steps of the entry point's own run
+# one batch; the steps of the entry point's own run, and its sequence
+# length (its own default: at 1,024 tokens the reduced width's 64-token
+# attention chunks make 21,593 operators, which the entry point and the
+# budget's capture each take about 55 s to capture on a CPU)
 LAUNCHER_BUDGET = 0.7
 LAUNCHER_STEPS, LAUNCHER_CKPT_EVERY, LAUNCHER_FAIL_AT = 6, 3, 4
 LAUNCHER_INT8_STEPS = 4
-LAUNCHER_MAIN_STEPS = 3
+LAUNCHER_MAIN_STEPS, LAUNCHER_MAIN_SEQ = 3, 128
 # the cold-start predictor's fit on A's measured operators
 MLP_FIT = {"steps": 2000, "lr": 3e-3, "train_share": 0.8, "seed": 0}
 # A compressed step against the unscheduled (exact) step from the same
@@ -1142,7 +1201,7 @@ def profile_window(fn, names=(), top: int = 5) -> dict:
             "top_kernels_ms": dict(by_name.most_common(top)), "named": named}
 
 
-def profile_decode(eng, steps: int = 4) -> dict:
+def profile_decode(eng, steps: int = 2) -> dict:
     """Device time against host time over a few full-batch decode steps,
     from ``torch.profiler``: kernels per step, device-busy milliseconds and
     the device's idle share of the window."""
@@ -2536,6 +2595,15 @@ def full_width_serving(sp):
     return eng, reqs
 
 
+def serve_params() -> ServeParams:
+    """The serve cell as a serve job: 4 slots, prompt 16, gen 16, 8
+    ``poisson`` requests, seed 0."""
+    return ServeParams(arch=ARCH, max_sequences=MAX_SEQUENCES,
+                       n_requests=N_REQUESTS, prompt_len=PROMPT_LEN,
+                       gen_len=GEN_LEN, trace="poisson", seed=0,
+                       block_tokens=4)
+
+
 def train_workload(cfg, api, step, device: str = "cuda"):
     """The train jobs' factory: ``tensile_train``'s step (no remat) on a
     fresh state, parameters from a generator on ``device`` seeded
@@ -2696,11 +2764,7 @@ def multi_job(link: dict) -> dict:
                         workload_params={"batch": b, "seed": seed})
              for j, (b, it, seed) in MULTI_JOBS.items()}
     specs["S"] = JobSpec("S", kind="serve", workload=SERVE_WORKLOAD,
-                         serve=ServeParams(
-                             arch=ARCH, max_sequences=MAX_SEQUENCES,
-                             n_requests=N_REQUESTS, prompt_len=PROMPT_LEN,
-                             gen_len=GEN_LEN, trace="poisson", seed=0,
-                             block_tokens=4))
+                         serve=serve_params())
     caps = {"S": timed("multi_job capture S", gc.capture_spec, specs["S"])}
     eng, reqs = caps["S"].args
     t0 = time.perf_counter()
@@ -2929,9 +2993,10 @@ def multi_job(link: dict) -> dict:
            "alloc_over_capacity": alloc / capacity,
            "alloc_over_ledger_peak": alloc / gc.global_peak_bytes,
            "launches": launches, "profile": window, "jobs": jobs,
-           "host_peak_bytes": host_peak_bytes()}
+           "host_peak_bytes": host_peak_bytes(), "golden_S": golden,
+           "demand_S": demand["S"]}
     log("[multi_job] " + json.dumps({k: v for k, v in out.items()
-                                      if k != "jobs"}))
+                                      if k not in ("jobs", "golden_S")}))
 
     # ---- gates ---------------------------------------------------------
     bad = []
@@ -3257,29 +3322,6 @@ def fit_latency_mlp(samples, util: float, device: str) -> tuple:
     return out, mlp
 
 
-def capture_with_mlp(spec, calib, mlp, measured_s: float,
-                     rec_a: dict) -> dict:
-    """A's capture seconds with the cost model's ``mlp`` attached (one
-    prediction, one synchronisation, per operator) against A's capture
-    under the controller without it (``rec_a``: the process's first
-    capture, so its seconds include what a first capture pays), and each
-    capture's predicted iteration time beside the measured one."""
-    step, params, opt, batch = resolve_workload(spec)
-    out = {"measured_iteration_s": measured_s,
-           "analytic_capture_s": rec_a["capture_s"],
-           "analytic_iteration_s": rec_a["iteration_s"]}
-    cm = CostModel(dataclasses.replace(calib))
-    cm.mlp = mlp
-    t0 = time.perf_counter()
-    seq, _ = capture_train_step(step, params, opt, batch,
-                                job_id=spec.job_id, cost_model=cm)
-    out["mlp_capture_s"] = time.perf_counter() - t0
-    out["mlp_iteration_s"] = seq.iteration_time
-    log("[experience] A's capture with and without the LatencyMLP: "
-        + json.dumps(out))
-    return out
-
-
 def experience_cold(link: dict, store_dir: str, device: str = "cuda",
                     cfg=None) -> dict:
     """The store's first run (module docstring): A then B, each under a
@@ -3302,8 +3344,6 @@ def experience_cold(link: dict, store_dir: str, device: str = "cuda",
     out["digest_A"] = state_digest(h.args[:2])
     util = gc.cost_model.utilization
     samples = list(gc.telemetry.ops.get("A", ()))
-    last = max(x.iteration for x in samples)
-    measured_s = sum(x.latency_s for x in samples if x.iteration == last)
     h.args = None
     del h
     out["A"] = rec_a
@@ -3325,8 +3365,6 @@ def experience_cold(link: dict, store_dir: str, device: str = "cuda",
     out["stored_calibration"] = dataclasses.asdict(
         gc2.experience.device_calibration())
     out["mlp"], mlp = fit_latency_mlp(samples, util, device)
-    out["capture_mlp"] = capture_with_mlp(specs["A"], calib, mlp, measured_s,
-                                          rec_a)
     # ---- gates ---------------------------------------------------------
     for rec in (rec_a, rec_b):
         bad += _experience_gates(rec)
@@ -3351,16 +3389,22 @@ def experience_cold(link: dict, store_dir: str, device: str = "cuda",
         "stored_peak_A": rec_a["stored"],
         "peak_drift_A": d["peak_drift"], "digest_A": out["digest_A"]}
     log("[experience] cold gates hold: " + json.dumps(out["handoff"]))
+    # the fitted predictor, for the service daemon's cost model
+    out["handoff"]["mlp_state"] = {k: v.cpu().tolist()
+                                   for k, v in mlp.state_dict().items()}
     return out
 
 
 def experience_warm(link: dict, store_dir: str, cold: dict,
-                    device: str = "cuda", cfg=None) -> dict:
+                    device: str = "cuda", cfg=None,
+                    service: dict = None) -> dict:
     """The store's second run, in a new process (module docstring): a
     controller over the same store with no explicit cost model captures,
     predicts and runs A; the ``peak`` policy's split of A and B with and
     without the store's priors.  ``cold`` is ``experience_cold``'s
-    handoff."""
+    handoff.  With ``service`` (``service_submit``'s), the service
+    plane's daemon then runs in this process over the same store, with
+    A's capture (``service_daemon``)."""
     profile, specs = _experience_env(link, device, cfg)
     gc = _experience_controller(profile, store_dir, device=device)
     store = gc.experience
@@ -3373,7 +3417,7 @@ def experience_warm(link: dict, store_dir: str, cold: dict,
     rec, h = _experience_job(gc, specs["A"], device,
                              capacity=cold["capacity"]["A"])
     out["digest_A"] = state_digest(h.args[:2])
-    seq_a = h.seq
+    seq_a, gm_a = h.seq, h.graph_module
     h.args = None
     del h
     out["A"] = rec
@@ -3428,6 +3472,330 @@ def experience_warm(link: dict, store_dir: str, cold: dict,
     log("[experience] warm gates hold: fingerprint, prediction "
         f"{rec['predicted']}, calibration, warm boot {wb[-1]}, digest, "
         f"drift {d['peak_drift']} < {cold['peak_drift_A']}")
+    if service is not None:
+        del gc, store
+        out["service"] = timed("service_daemon", service_daemon,
+                               store_dir, service, profile,
+                               (seq_a, gm_a), cold["mlp_state"])
+    return out
+
+
+# ---------------------------------------------------------------- service
+def service_submit(root: str, cold: dict, mj: dict) -> dict:
+    """The service phase's client (module docstring): A, C and S and a
+    drain request dropped into the inbox of ``root`` (outside the
+    checkout) before any daemon runs, so the daemon's first tick captures
+    and predicts all three before it admits any.  A's slice is its cold
+    capacity (``cold``: ``experience_cold``'s handoff), S's half its KV
+    demand, given as the specs' priorities; the daemon sets the capacity.
+    ``mj`` is ``multi_job``'s result: S's KV demand from that controller's
+    capture of the same serve spec, and S's unbudgeted serve (the same
+    factory and trace), which the daemon's S must reproduce."""
+    demand_s = mj["demand_S"]
+    slices = {"A": cold["capacity"]["A"],
+              "S": int(MULTI_SERVE_SLICE * demand_s)}
+    a, _, seed = EXPERIENCE_JOBS["A"]
+    client = ServiceClient(root)
+    specs = {"A": JobSpec("A", workload=TRAIN_WORKLOAD,
+                          iterations=SERVICE_A_ITERS,
+                          priority=slices["A"] / 1e9,
+                          workload_params={"batch": a, "seed": seed}),
+             "C": JobSpec("C", workload=TRAIN_WORKLOAD, iterations=1,
+                          workload_params={"batch": SERVICE_C_BATCH,
+                                           "seed": 2}),
+             "S": JobSpec("S", kind="serve", workload=SERVE_WORKLOAD,
+                          priority=slices["S"] / 1e9, serve=serve_params())}
+    for spec in specs.values():
+        client.submit(spec)
+    client.drain()
+    return {"root": root, "slices": slices, "demand_S": demand_s,
+            "golden_S": mj["golden_S"], "spec_A": specs["A"].to_dict(),
+            "dropped": time.time()}
+
+
+def service_gates(service: dict, cold: dict, warm: dict) -> dict:
+    """The service phase's gates on what the daemon left: the store's
+    records read back through the client, and the daemon process's own
+    gates (``service_daemon``)."""
+    client = ServiceClient(service["root"])
+    records = {j: r.to_dict() for j, r in client.status().items()}
+    heartbeat = client.heartbeat()
+    out = dict(warm["service"])
+    bad = list(out.pop("bad"))
+    capacity = out["capacity"]
+    states = {j: r["state"] for j, r in records.items()}
+    want = {"A": "DONE", "C": "REJECTED", "S": "DONE", "crash-q": "DONE",
+            "crash-a": "DONE", "crash-r": "DONE"}
+    if states != want:
+        bad.append(f"states {states}, not {want}")
+    ra, rc_, rs = records["A"], records["C"], records["S"]
+    if (ra["predicted_source"], ra["predicted_peak_bytes"]) != \
+            ("experience", warm["A"]["stored"][0]):
+        bad.append(f"A predicted {ra['predicted_peak_bytes']} "
+                   f"[{ra['predicted_source']}], the store holds "
+                   f"{warm['A']['stored']}")
+    if rc_["predicted_source"] != "cost-model" \
+            or rc_["predicted_peak_bytes"] <= capacity \
+            or "never admissible" not in (rc_["error"] or ""):
+        bad.append(f"C: {rc_}")
+    # the daemon's own capture of S books the KV demand the slices were
+    # drawn from
+    if (rs["predicted_source"], rs["predicted_peak_bytes"]) != \
+            ("cost-model", service["demand_S"]):
+        bad.append(f"S predicted {rs['predicted_peak_bytes']} "
+                   f"[{rs['predicted_source']}], its KV demand "
+                   f"{service['demand_S']}")
+    if records["crash-r"]["requeues"] != 1:
+        bad.append(f"the orphan was re-queued {records['crash-r']['requeues']}"
+                   " times")
+    if not heartbeat or heartbeat["state"] != "stopped":
+        bad.append(f"heartbeat {heartbeat}")
+    out["seconds"].setdefault("A", {})["capture_reused"] = \
+        warm["A"]["capture_s"]
+    out.update({"slices": service["slices"], "demand_S": service["demand_S"],
+                "predicted": {j: [records[j]["predicted_peak_bytes"],
+                                  records[j]["predicted_source"]]
+                              for j in ("A", "C", "S")},
+                "cold_measured_A": cold["handoff"]["stored_peak_A"][0],
+                # from the drop into the inbox: the cold and warm runs,
+                # then the daemon's first tick
+                "queue_wait_s": {j: records[j]["admitted_at"]
+                                 - service["dropped"] for j in ("A", "S")}})
+    log(f"[service] {card_line()}: " + json.dumps(out))
+    if bad:
+        raise AssertionError(f"service: {bad}")
+    log(f"[service] gates hold: A warm from the store "
+        f"({out['predicted']['A'][0]} B, experience) and bit-identical to "
+        f"its solo run, C rejected cold ({out['predicted']['C'][0]} B > "
+        f"{capacity} B) after a capture through the LatencyMLP "
+        f"({out['mlp']['calls']} predictions, "
+        f"{out['mlp']['iteration_s_C']} s an iteration), S golden with "
+        f"{out['S']['evictions']} evictions, KV launches {out['launches']}, "
+        "the orphan re-queued once, metrics and trace valid")
+    return out
+
+
+def service_daemon(store_dir: str, service: dict, profile,
+                   capture_a: tuple, mlp_state: dict) -> dict:
+    """The service phase's daemon (module docstring), in the
+    ``experience_warm`` process after its gates: a ``SchedulerDaemon``
+    over ``service["root"]`` whose controller owns the card, over the
+    experience store at ``store_dir``, with a trace recorder on the daemon
+    and the controller's engine, runs what the inbox holds until it
+    drains; then A against its solo run, S against the golden serve, the
+    metrics and the trace; then a crashed daemon's orphans recovered on
+    the same root.  ``capture_a`` is the (sequence, graph module) this
+    process captured for A: the daemon holds that pair and a fresh state
+    as A's capture from the start, so admission captures A no second
+    time.  The controller's cost model carries the LatencyMLP
+    ``experience_cold`` fitted (``mlp_state``), so the captures admission
+    makes (C's) predict each operator's latency through it.  The capacity
+    is the two slices' sum, or what admission needs for both predicted
+    peaks.  Per job, capture and prediction seconds come from the
+    daemon's admission spans on the trace.  Returns the numbers and the
+    gates that failed here."""
+    t_phase = time.perf_counter()
+    root = service["root"]
+    engine_bytes, serve_s = {}, {}
+
+    def serving(sp):
+        """``full_width_serving``, with the bytes its engine holds (which
+        no ledger books) and the wall seconds of its serve."""
+        before = torch.cuda.memory_allocated()
+        eng, reqs = full_width_serving(sp)
+        engine_bytes["S"] = torch.cuda.memory_allocated() - before
+        serve = eng.serve
+
+        def timed_serve(*args, **kw):
+            t0 = time.perf_counter()
+            res = serve(*args, **kw)
+            torch.cuda.synchronize()
+            serve_s["S"] = time.perf_counter() - t0
+            return res
+
+        eng.serve = timed_serve
+        return eng, reqs
+
+    register_serve_workload(SERVE_WORKLOAD, serving)
+    seq_a, gm_a = capture_a
+    store = ExperienceStore(store_dir, device_id=device_identity(profile))
+    capacity = max(sum(service["slices"].values()),
+                   store.predicted_peak(seq_a)[0] + service["demand_S"])
+    del store
+    mlp = LatencyMLP(seed=0, device="cuda")
+    mlp.load_state_dict({k: torch.tensor(v) for k, v in mlp_state.items()})
+    mlp_calls = collections.Counter()
+    mlp.register_forward_hook(lambda *_: mlp_calls.update(["forward"]))
+    cost_model = CostModel(calibrate_cuda())
+    cost_model.mlp = mlp
+    controller = dict(
+        profile=profile, cost_model=cost_model,
+        async_swap=True, pipeline_name=MULTI_PIPELINE,
+        arbiter_policy="priority", experience_dir=store_dir,
+        hold_slices=True, device="cuda",
+        scheduler_config=SchedulerConfig(patience_iters=PLAN_PATIENCE))
+    daemon = SchedulerDaemon(root, capacity_bytes=capacity,
+                             poll_interval=SERVICE_POLL,
+                             controller_kwargs=controller)
+    gc = daemon.controller
+    recorder = TraceRecorder(clock="real", budget_bytes=capacity)
+    daemon.attach_recorder(recorder)
+    gc.engine.attach_recorder(recorder)
+    kbc.kv_block_gather.launches = 0
+    kbc.kv_block_scatter.launches = 0
+    base = _allocated("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # the daemon's captures by job (``SchedulerDaemon._captured``): one it
+    # holds is not captured again.  A's fresh state is made after the
+    # allocator's base, which it counts against the capacity as the
+    # ledger does
+    _, params, opt, batch = resolve_workload(
+        JobSpec.from_dict(service["spec_A"]))
+    daemon._captured["A"] = CapturedJob(
+        seq=seq_a, graph_module=gm_a, args=(params, opt, batch),
+        fingerprint=gc.experience.fingerprint(seq_a))
+    del params, opt, batch
+    t0 = time.perf_counter()
+    daemon.serve_forever()
+    loop_s = time.perf_counter() - t0
+    gc.wait(timeout=60)
+    torch.cuda.synchronize()
+    launches = {"kv_block_gather": kbc.kv_block_gather.launches,
+                "kv_block_scatter": kbc.kv_block_scatter.launches}
+    alloc = (torch.cuda.max_memory_allocated() - base
+             - engine_bytes.get("S", 0))
+    bad = []
+    with open(daemon.metrics_path) as f:
+        metrics = parse_metrics_text(f.read())
+    names = {n for n, _ in metrics}
+    rate = metrics.get(("tensile_serve_tokens_per_sec", (("job", "S"),)))
+    if not set(SERVICE_GAUGES) <= names or not rate:
+        bad.append(f"metrics.prom lacks {set(SERVICE_GAUGES) - names} "
+                   f"(serve rate {rate})")
+    # the trace, dumped as the daemon drained
+    t1 = time.perf_counter()
+    trace_path = os.path.join(root, "service.trace.json")
+    trace = recorder.dump(trace_path)
+    dump_s = time.perf_counter() - t1
+    errors = validate_chrome_trace(trace)
+    tracks = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    instants = sorted((tracks.get(e.get("tid"), ""), e["name"])
+                      for e in trace["traceEvents"]
+                      if e["ph"] == "i" and e["name"].startswith("job:"))
+    want_instants = sorted([("job:A", f"job:{s}") for s in
+                            ("ADMITTED", "RUNNING", "DONE")]
+                           + [("job:S", f"job:{s}") for s in
+                              ("ADMITTED", "RUNNING", "DONE")]
+                           + [("job:C", "job:REJECTED")])
+    # admission's spans: a capture for each job the daemon captured (A's
+    # it was handed), a prediction for each
+    admission = {(tracks.get(e["tid"], "")[4:], e["name"]): e
+                 for e in trace["traceEvents"] if e.get("cat") == "admission"}
+    seconds = collections.defaultdict(dict)
+    for (j, name), e in admission.items():
+        seconds[j]["prediction" if name == "predict" else name] = \
+            e["dur"] / 1e6
+    iteration_c = admission.get(("C", "capture"), {}).get(
+        "args", {}).get("iteration_s")
+    h_a, h_s = gc.jobs["A"], gc.jobs["S"]
+    ops_a = sum(1 for e in trace["traceEvents"]
+                if e.get("cat") == "op" and e["args"].get("job") == "A")
+    dma = sum(1 for e in trace["traceEvents"]
+              if e.get("cat") == "transfer" and e.get("tid") == DMA_TID)
+    if errors or instants != want_instants \
+            or sorted(admission) != [("A", "predict"), ("C", "capture"),
+                                     ("C", "predict"), ("S", "capture"),
+                                     ("S", "predict")] \
+            or ops_a != SERVICE_A_ITERS * len(h_a.seq.operators) or not dma:
+        bad.append(f"trace: {errors[:5]}, instants {instants}, admission "
+                   f"spans {sorted(admission)}, A's op spans {ops_a} for "
+                   f"{len(h_a.seq.operators)} operators, {dma} DMA spans")
+    # C's capture went through the predictor: one call an operator whose
+    # cost it priced, and a finite, positive iteration time
+    if not mlp_calls["forward"] or iteration_c is None \
+            or not (math.isfinite(iteration_c) and iteration_c > 0):
+        bad.append(f"the LatencyMLP in C's capture: {mlp_calls['forward']} "
+                   f"calls, iteration {iteration_c} s")
+    summary = summarize_trace(trace)
+    trace_out = {"events": len(trace["traceEvents"]),
+                 "bytes": os.path.getsize(trace_path), "dump_s": dump_s,
+                 "op_spans_A": ops_a, "dma_spans": dma,
+                 "transfers": summary["transfer_count"],
+                 "budget_violations": len(summary["budget_violations"])}
+    del trace, summary
+    rep = h_s.stats[-1]
+    out = {"loop_s": loop_s, "seconds": dict(seconds),
+           "first_iteration_s": {"A": h_a.step_times[0], "S": serve_s["S"]},
+           "global_ledger_peak": gc.global_peak_bytes,
+           "max_memory_allocated": alloc, "engine_bytes_S":
+           engine_bytes["S"], "launches": launches,
+           "replans": gc.replan_count, "replan_s": gc.replan_seconds,
+           "split": gc.arbiter.history,
+           "budget_guard": [{"waits": st.budget_waits,
+                             "evictions": st.budget_evictions,
+                             "swap_outs": st.swap_out_count}
+                            for st in h_a.stats],
+           "mlp": {"calls": mlp_calls["forward"],
+                   "iteration_s_C": iteration_c},
+           "S": {"tokens": rep.tokens_generated,
+                 "wall_tokens_per_s": rep.tokens_generated / serve_s["S"],
+                 "virtual_tokens_per_s": rep.tokens_per_s,
+                 "evictions": rep.evictions, "oom_events": rep.oom_events,
+                 "budget": h_s.budget_bytes, "peak_bytes": rep.peak_bytes},
+           "metrics_samples": len(metrics), "trace": trace_out}
+    if gc.global_peak_bytes > capacity:
+        bad.append(f"global ledger peak {gc.global_peak_bytes} > capacity "
+                   f"{capacity}")
+    if alloc > (1 + ALLOC_LEDGER_TOL) * capacity:
+        bad.append(f"max_memory_allocated {alloc} > 1.05 x {capacity}")
+    if rep.oom_events or rep.evictions <= 0:
+        bad.append(f"serve: oom_events {rep.oom_events}, evictions "
+                   f"{rep.evictions}")
+    if min(launches.values()) <= 0:
+        bad.append(f"KV kernel launches {launches}")
+    # A against the same iterations alone and unscheduled from the same
+    # state; S against the golden serve
+    tokens = h_s.outputs
+    h_s.args = None
+    solo = timed("service solo A", _solo, h_a.graph_module, h_a.seq, profile,
+                 JobSpec("A", workload=TRAIN_WORKLOAD,
+                         workload_params=h_a.spec.workload_params),
+                 SERVICE_A_ITERS, False, pytree.tree_leaves(h_a.args[:2]))
+    if solo["differ"]:
+        bad.append(f"A: {len(solo['differ'])} of {solo['leaves']} state "
+                   "leaves differ from its solo unscheduled run")
+    h_a.args = None
+    if tokens != service["golden_S"]:
+        bad.append("the serve job's tokens differ from the golden run")
+    # a crashed daemon's queue on the same root: one QUEUED, one ADMITTED
+    # and one RUNNING orphan (MLP jobs), recovered by a new daemon
+    now = time.time()
+    store = JobStore(root)
+    seeded = {"crash-q": JobState.QUEUED, "crash-a": JobState.ADMITTED,
+              "crash-r": JobState.RUNNING}
+    for jid, state in seeded.items():
+        store.put(JobRecord(spec=JobSpec(jid, workload="mlp", iterations=1,
+                                         workload_params={"size": "small"}),
+                            state=state, submitted_at=now), now)
+    t1 = time.perf_counter()
+    again = SchedulerDaemon(root, poll_interval=SERVICE_POLL,
+                            controller_kwargs={"device": "cuda"})
+    recovered = again.recovered
+    drained = again.drain(timeout=120)
+    out["recovery"] = {"recovered": recovered, "drained": drained,
+                       "s": time.perf_counter() - t1}
+    if set(recovered["replayed"]) != {"crash-q", "crash-a"} \
+            or recovered["requeued_orphans"] != ["crash-r"] \
+            or recovered["failed_orphans"] or not drained:
+        bad.append(f"recovery: {out['recovery']}")
+    with open(again.metrics_path) as f:
+        names = {n for n, _ in parse_metrics_text(f.read())}
+    if not set(SERVICE_GAUGES[:5]) <= names:
+        bad.append(f"the restarted daemon's metrics lack "
+                   f"{set(SERVICE_GAUGES[:5]) - names}")
+    out.update({"phase_s": time.perf_counter() - t_phase,
+                "capacity": capacity, "bad": bad})
     return out
 
 
@@ -3552,6 +3920,27 @@ def _restart_run(api, cfg, tcfg, ckpt_dir: str, dev: str, batch: int,
             "ckpt_s": times}
 
 
+def main_budget_mb(dev: str, batch: int, seq: int) -> float:
+    """LAUNCHER_BUDGET of the planned peak of the step that
+    ``launch.train.main`` runs at its reduced width, in MiB: the step
+    without remat over int8 moments, captured as ``main`` captures it."""
+    cfg = get_config(ARCH).reduced()
+    params = get_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(dict(params.named_parameters()), grad_compression=True)
+    probe = build_functional_train_step(
+        get_model(dataclasses.replace(cfg, remat="none"), dev),
+        TrainStepConfig())
+    data = to_device(dev)(TokenStream(DataConfig(
+        seq_len=seq, global_batch=batch,
+        vocab_size=cfg.vocab_size)).batch_at(0))
+    s, _ = capture_train_step(probe, dict(params.named_parameters()), opt,
+                              data)
+    planned = simulate([s], None, MachineProfile(), iterations=1,
+                       transfer_mode="sync").peak_bytes
+    return LAUNCHER_BUDGET * planned / 2**20
+
+
 def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
                    seq: int = TRAIN_S) -> dict:
     """The training launcher's path (``launch.train``) at full width on
@@ -3563,7 +3952,7 @@ def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
     deterministic()
     dev = device
     cfg = cfg or dataclasses.replace(get_config(ARCH),
-                                     n_layers=TENSILE_LAYERS)
+                                     n_layers=LAUNCHER_LAYERS)
     card = card_line() if dev == "cuda" else "cpu"
     api = get_model(cfg, dev)
     rec: dict = {"card": card}
@@ -3745,19 +4134,34 @@ def train_launcher(device: str = "cuda", cfg=None, batch: int = TRAIN_B,
         if dev == "cuda":
             torch.cuda.empty_cache()
 
-        # the entry point itself
-        args = ["--arch", ARCH, "--steps", str(LAUNCHER_MAIN_STEPS), "--batch", str(batch),
-                "--seq", str(seq), "--tensile-budget-mb", str(budget / 2**20),
+        # the entry point itself, at its reduced width (``--full`` took
+        # 36-50 s more of the script's time limit; TENSILE's decisions at
+        # full width are the steps above, the entry point at full width
+        # whisper's ``main --full``) with a TENSILE budget from a capture
+        # at that width: main captures, schedules for the budget and runs
+        # its steps under the remat policy it makes
+        main_seq = min(seq, LAUNCHER_MAIN_SEQ)
+        budget_mb = main_budget_mb(dev, batch, main_seq)
+        args = ["--arch", ARCH, "--steps", str(LAUNCHER_MAIN_STEPS),
+                "--batch", str(batch), "--seq", str(main_seq),
+                "--tensile-budget-mb", str(budget_mb),
                 "--grad-compression", "int8", "--device", dev,
                 "--ckpt-dir", os.path.join(root, "main"), "--log-every", "1"]
-        if dev == "cuda":
-            args.insert(2, "--full")
-        rc, main_s, main_peak = _peak_of(lambda: launch_train.main(args), dev)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc, main_s, main_peak = _peak_of(
+                lambda: launch_train.main(args), dev)
+        lines = printed.getvalue().splitlines()
+        for line in lines:
+            log(f"[train_launcher] main: {line}")
+        decided = [ln for ln in lines if ln.startswith("[tensile] ")]
         rec["main"] = {"args": args, "rc": rc, "s": main_s,
-                       "max_memory_allocated": main_peak}
+                       "max_memory_allocated": main_peak,
+                       "decisions": decided}
         log(f"[train_launcher] {card}: main " + json.dumps(rec["main"]))
-        if rc != 0:
-            raise AssertionError(f"launch.train.main returned {rc}")
+        if rc != 0 or len(decided) != 1:
+            raise AssertionError(f"launch.train.main returned {rc} and "
+                                 f"printed the decisions {decided}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return rec
@@ -4697,9 +5101,9 @@ def main() -> int:
         raise AssertionError(f"the budgeted Mamba-2 serve allocated {gap} B "
                              "over the golden run: more than one batched "
                              f"transfer's rows ({SSM_SWAP_PEAK_GAP} B)")
-    restore = {arch: timed(f"profile_restore {arch}", in_fresh_process,
-                           "profile_restore", arch)
-               for arch in (ARCH, SSM_ARCH)}
+    restore = dict(zip((ARCH, SSM_ARCH), timed(
+        "profile_restore", in_fresh_process, "phases",
+        [["profile_restore", [arch]] for arch in (ARCH, SSM_ARCH)])))
     timed("profile_decode_ssm", profile_decode, ssm["eng"])
     timed("check_decode_ssm", check_decode_on_small_input, SSM_ARCH)
     ssm_pre = timed("prefill_ssm", prefill, ssm["eng"],
@@ -4708,8 +5112,6 @@ def main() -> int:
     timed("train_ssm", train, ssm["eng"])
     timed("check_train_step_ssm", check_train_step_on_small_input, SSM_ARCH)
     ts = timed("time_ssd", time_ssd)
-    ts_dev = timed("ssd_device_ms", in_fresh_process, "ssd_device_ms")
-    log("[time] ssd device ms " + json.dumps(ts_dev))
     del ssm
     torch.cuda.empty_cache()
 
@@ -4718,9 +5120,6 @@ def main() -> int:
                       link)
     sweep = timed("quant_cta_sweep", quant_cta_sweep, link)
     ladder = timed("quant_swap_in_ladder", quant_swap_in_ladder)
-    quant_big_dev = timed("quant_device_ms_64mib", in_fresh_process,
-                          "quant_device_ms", QUANT_BIG, "float32")
-    log("[time] quant device ms at 64 MiB fp32 " + json.dumps(quant_big_dev))
     timed("tensile_mlp", tensile_mlp)
     tt = timed("tensile_train", tensile_train, link,
                quant_big["quantize_source_bytes_per_s"])
@@ -4733,8 +5132,16 @@ def main() -> int:
     (shape, dtype), _ = max(tt["quantized_shapes_raw"].items(),
                             key=lambda kv: (kv[1], math.prod(kv[0][0])))
     qt = timed("time_quant", time_quant, shape, getattr(torch, dtype), link)
-    qt_dev = timed("quant_device_ms", in_fresh_process, "quant_device_ms",
-                   shape, dtype)
+    # the SSD and quant kernels' device times, in one fresh process (whose
+    # traces lose no events): the SSD wrapper at the prefill's shape, the
+    # quant pair at 64 MiB fp32 and at the main path's shape
+    ts_dev, quant_big_dev, qt_dev = timed(
+        "device_ms", in_fresh_process, "phases", [
+            ["ssd_device_ms", []],
+            ["quant_device_ms", [QUANT_BIG, "float32"]],
+            ["quant_device_ms", [shape, dtype]]])
+    log("[time] ssd device ms " + json.dumps(ts_dev))
+    log("[time] quant device ms at 64 MiB fp32 " + json.dumps(quant_big_dev))
     log("[time] quant device ms " + json.dumps(qt_dev))
     torch.cuda.empty_cache()
 
@@ -4753,18 +5160,27 @@ def main() -> int:
     # the experience plane: the store's first run, then a warm run in a
     # second process from the same store, outside the checkout
     store_dir = tempfile.mkdtemp(prefix="tensile-experience-")
+    service_root = tempfile.mkdtemp(prefix="tensile-service-")
     try:
         t0 = time.perf_counter()
         cold = in_fresh_process("experience_cold", link, store_dir,
                                 timeout=900)
         cold_s = time.perf_counter() - t0
         log(f"[phase] experience_cold {cold_s:.2f} s")
+        # the service plane: this process submits through the inbox; a
+        # daemon over the same store runs the jobs in the warm process
+        service = service_submit(service_root, cold["handoff"],
+                                 mj["multi_job"])
         warm = in_fresh_process("experience_warm", link, store_dir,
-                                cold["handoff"], timeout=900)
+                                cold["handoff"], "cuda", None, service,
+                                timeout=900)
         warm_s = time.perf_counter() - t0 - cold_s
-        log(f"[phase] experience_warm {warm_s:.2f} s")
+        log(f"[phase] experience_warm (and the service daemon) "
+            f"{warm_s:.2f} s")
+        svc = timed("service", service_gates, service, cold, warm)
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+        shutil.rmtree(service_root, ignore_errors=True)
     log("[experience] " + json.dumps({
         "command_s": {"cold": cold_s, "warm": warm_s},
         "first_plan_s": {"cold_A": cold["A"]["first_plan_s"],
@@ -4780,7 +5196,7 @@ def main() -> int:
                        "cold_B": cold["B"]["drift"]["peak_drift"],
                        "warm_A": warm["A"]["drift"]["peak_drift"]},
         "peak_split": warm["peak_split"], "bandwidth": warm["bandwidth"],
-        "mlp": cold["mlp"], "capture_mlp": cold["capture_mlp"],
+        "mlp": cold["mlp"],
         "store_bytes": warm["store_bytes"]}))
 
     # the training launcher at full width, in a fresh process: TENSILE's
@@ -4820,6 +5236,7 @@ def main() -> int:
             "shape": {"leaves": tl["leaves"], "k": tl["k"]},
             "launches_serve_ssm": ssm_serve["launches"][name],
             "launches_multi_job": mj["multi_job"]["launches"][name],
+            "launches_service": svc["launches"][name],
             "mamba2_state": kv_times["mamba2_state"][name],
             "mamba2_state_bound_ms": kv_times["mamba2_state"]["bound_ms"],
             "restore_device_busy_ms": {
@@ -4914,7 +5331,14 @@ def main() -> int:
     return 0
 
 
-FRESH_PHASES = {"whisper": whisper,
+def phases(calls: list) -> list:
+    """Several of FRESH_PHASES in one fresh process, in order: each call a
+    ``[name, args]`` pair; one process start for all of them."""
+    return [FRESH_PHASES[name](*args) for name, args in calls]
+
+
+FRESH_PHASES = {"phases": phases,
+                "whisper": whisper,
                 "moe": moe,
                 "train_launcher": train_launcher,
                 "experience_cold": experience_cold,

@@ -810,6 +810,28 @@ class FxExecutor:
                          self.seq.operators[self.producer[tid]].inputs]
         return need, keep
 
+    def operator_floor(self) -> int:
+        """The most bytes one operator must hold on the device at once:
+        its inputs and results, with the producers' inputs of what the
+        running plan recomputes for it, each storage once.  A budget
+        below it makes the guard raise at that operator."""
+        recomputed = ({e.tensor_id for e in self.plan.recomputes()}
+                      if self.plan is not None else set())
+        floor = 0
+        for op in self.seq.operators:
+            keep: Set[str] = set()
+            todo = list(op.inputs) + list(op.outputs)
+            while todo:
+                tid = todo.pop()
+                st = self._st(tid)
+                if st in keep:
+                    continue
+                keep.add(st)
+                if tid in recomputed and tid in self.producer:
+                    todo += self.seq.operators[self.producer[tid]].inputs
+            floor = max(floor, sum(self.ctx.size_of(st) for st in keep))
+        return floor
+
     def _queued_in_bytes(self) -> int:
         """Bytes the queued (not yet issued) prefetches book at issue."""
         return sum(self.ctx.size_of(t.key[3:])

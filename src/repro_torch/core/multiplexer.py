@@ -49,7 +49,13 @@ With ``hold_slices=True`` (off by default, as in the reference) each
 train job's executor gets the job's slice as its budget
 (``FxExecutor(budget_bytes=...)``): where the planner returns a plan over
 the slice, or a plan's model misjudges the card, the executor waits for
-its swap-outs or swaps out more itself rather than exceed the slice.
+its swap-outs or swaps out more itself rather than exceed the slice.  A
+split that shrinks the slice reaches the running executor's guard at
+once, so an arrival cannot push the device over its capacity while an
+earlier job finishes an iteration planned for a larger slice; the guard
+is never set below what one of that iteration's operators must hold at
+once (``FxExecutor.operator_floor``), so the running job finishes its
+iteration over the larger of the two.
 """
 from __future__ import annotations
 
@@ -81,8 +87,8 @@ from .telemetry import TelemetryHub
 
 class JobFailedError(RuntimeError):
     """One or more job threads died.  Carries every failed handle so a
-    multi-job failure is reported whole; the first underlying exception is
-    chained as ``__cause__``."""
+    multi-job failure is reported whole, each job's traceback in the
+    message; the first underlying exception is chained as ``__cause__``."""
 
     def __init__(self, failures: Dict[str, BaseException],
                  tracebacks: Optional[Dict[str, str]] = None):
@@ -90,8 +96,10 @@ class JobFailedError(RuntimeError):
         self.tracebacks = dict(tracebacks or {})
         detail = "; ".join(
             f"{j}: {type(e).__name__}: {e}" for j, e in self.failures.items())
+        tbs = "".join(f"\n--- {j} ---\n{tb}"
+                      for j, tb in self.tracebacks.items())
         super().__init__(
-            f"{len(self.failures)} job(s) failed — {detail}")
+            f"{len(self.failures)} job(s) failed — {detail}{tbs}")
 
 
 @dataclasses.dataclass
@@ -143,6 +151,14 @@ def _is_serve(handle: JobHandle) -> bool:
     outside submit() may carry no graph and still be training jobs."""
     return (handle.spec is not None
             and getattr(handle.spec, "kind", "train") == "serve")
+
+
+def _within_budget(plan: Optional[SchedulingPlan]) -> bool:
+    """Whether a plan certified a peak within the budget it was built
+    against (0: none recorded)."""
+    return plan is not None and (not plan.budget_bytes
+                                 or plan.planned_peak_bytes
+                                 <= plan.budget_bytes)
 
 
 @dataclasses.dataclass
@@ -231,10 +247,13 @@ class BudgetArbiter:
     demand and the surplus re-flows to the uncapped jobs.  Every split is
     appended to ``history``.
 
-    ``mode`` decides how a shrunken slice reaches a running job:
+    ``mode`` decides how a shrunken slice reaches a running job's plan:
     ``"boundary"`` (the paper's rule) at its next iteration boundary;
     ``"preempt"`` also mid-iteration, at its next safe point
-    (``GlobalController._preempt_victims``).
+    (``GlobalController._preempt_victims``).  In either mode a controller
+    with ``hold_slices`` also sets the running executor's budget guard to
+    the shrunken slice at once, floored at what one of its operators must
+    hold at once.
     """
 
     def __init__(self, capacity_bytes: int, policy: str = "equal",
@@ -445,8 +464,9 @@ class GlobalController:
     def capture_spec(self, spec) -> CapturedJob:
         """Admission hook #1: resolve a ``JobSpec`` and capture its graph
         (``service.workloads``: an in-process ``spec.payload`` wins, else
-        the workload factory named by ``spec.workload``).  The capture is
-        reusable: capture once, predict the peak, then ``submit`` it.
+        the workload factory named by ``spec.workload``, given the
+        controller's device where it takes one).  The capture is reusable:
+        capture once, predict the peak, then ``submit`` it.
 
         Serve specs (``kind="serve"``) have no graph: they capture to a
         synthetic access sequence whose tensors are the per-slot KV
@@ -455,7 +475,8 @@ class GlobalController:
         if getattr(spec, "kind", "train") == "serve":
             return self._capture_serve_spec(spec)
         from ..service.workloads import resolve_workload
-        step_fn, params, opt_state, batch = resolve_workload(spec)
+        step_fn, params, opt_state, batch = resolve_workload(
+            spec, device=self.device)
         self._check_device(spec.job_id, [
             t.device for t in pytree.tree_leaves((params, opt_state, batch))
             if isinstance(t, torch.Tensor)])
@@ -486,7 +507,8 @@ class GlobalController:
         peak is the all-slots-resident KV bound."""
         from ..service.workloads import resolve_serve_workload
         from .access import Operator, TensorKind, TensorSpec
-        engine, requests = resolve_serve_workload(spec)
+        engine, requests = resolve_serve_workload(spec,
+                                                  device=self.device)
         self._check_device(spec.job_id, [engine.device])
         sp = spec.serve
         per_seq = engine.bytes_per_token * (sp.prompt_len + sp.gen_len)
@@ -709,8 +731,15 @@ class GlobalController:
                 h.plan_version += 1
         for j in live:
             if budgets is not None:
-                self.jobs[j].ledger_view = self.accountant.view(
-                    j, budgets.get(j))
+                h = self.jobs[j]
+                h.ledger_view = self.accountant.view(j, budgets.get(j))
+                if (self.hold_slices and h.executor is not None
+                        and not _is_serve(h)):
+                    # a held slice follows the split into the iteration
+                    # that is running, not only into the next one, but
+                    # never below what one of its operators must hold
+                    h.executor.budget_bytes = max(
+                        h.budget_bytes, h.executor.operator_floor())
         self._replan_count += 1
         if (self.arbiter is not None and self.arbiter.mode == "preempt"
                 and budgets is not None):
@@ -783,22 +812,27 @@ class GlobalController:
             batch = handle.args[2]
             parked: Dict[str, Any] = {}
             with self._job_stream(handle):
-                for _ in range(handle.iterations):
+                for it in range(handle.iterations):
                     with self._lock:
                         plan = handle.plan
+                        budget = (handle.budget_bytes if self.hold_slices
+                                  else None)
                     ex = FxExecutor(
                         handle.graph_module, handle.seq, plan,
                         accountant=self.accountant, channel=self.channel,
                         async_swap=self.async_swap, measure_latency=True,
                         telemetry=self.telemetry,
                         host_resident_inputs=set(parked),
-                        copy_stream=self.copy_stream,
-                        budget_bytes=handle.budget_bytes
-                        if self.hold_slices else None)
+                        copy_stream=self.copy_stream, budget_bytes=budget)
                     ex.host.update(parked)
                     ex.ctx.host_compressed |= {
                         st for st, rec in parked.items() if rec.compressed}
-                    handle.executor = ex
+                    with self._lock:
+                        # a split made while the executor was built; later
+                        # ones reach it from _replan
+                        if self.hold_slices:
+                            ex.budget_bytes = handle.budget_bytes
+                        handle.executor = ex
                     state = list(handle.args)
                     handle.args = None
                     t0 = _time.perf_counter()
@@ -819,8 +853,13 @@ class GlobalController:
                     del outs
                     # measured-telemetry feedback (paper step 4): fold the
                     # hub's samples into the job's sequence, replan on
-                    # drift
-                    if self.report_telemetry(handle.job_id):
+                    # drift.  After the last iteration a new plan would
+                    # only be stored: a job whose plan kept to its slice
+                    # keeps that plan, and the timeline it was built on,
+                    # for the experience store, beside the peak it ran at
+                    if (it + 1 < handle.iterations
+                            or not _within_budget(plan)) \
+                            and self.report_telemetry(handle.job_id):
                         with self._lock:
                             self._replan()
                     ex.close()
@@ -870,8 +909,10 @@ class GlobalController:
     # ------------------------------------------------------------------
     def _flush_experience(self, handle: JobHandle) -> None:
         """Record and flush a finished job's distilled experience: its
-        telemetry summary, the recalibrated calibration and its final plan.
-        A failure is recorded, never raised.  Called under the lock."""
+        telemetry summary, the recalibrated calibration and its final plan
+        (the plan its last iteration ran, unless that plan certified over
+        its slice and a drift replan followed).  A failure is recorded,
+        never raised.  Called under the lock."""
         try:
             self.cost_model.recalibrate(self.telemetry, report=False)
             fp = handle.fingerprint \

@@ -9,7 +9,10 @@ package's ``service/workloads.py``):
 2. A name registered with :func:`register_workload`.
 3. A ``"module:attr"`` import path to a factory with the same signature.
 
-Factories take ``**spec.workload_params``.  The builtin ``"mlp"`` workload
+Factories take ``**spec.workload_params``; a caller that owns a device
+(``GlobalController``) passes it as ``device`` to a factory that takes
+one, unless the params name it, so a spec that crossed a daemon's inbox
+runs where the daemon runs.  The builtin ``"mlp"`` workload
 is ``make_mlp``: the JAX package's canonical smoke workload, a tanh MLP
 with a mean-squared-error loss and one AdamW step.  Its weights and data
 are numpy arrays (the caller's, e.g. the JAX package's drawn ones, or numpy
@@ -27,6 +30,7 @@ trace generator; a caller registers its own factory for another shape
 from __future__ import annotations
 
 import importlib
+import inspect
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,8 +69,22 @@ def _import_factory(spec: JobSpec, name: str, what: str):
                          f"{name!r}: {exc}") from exc
 
 
-def resolve_workload(spec: JobSpec) -> Payload:
-    """Resolve ``spec`` to ``(step_fn, params, opt_state, batch)``.
+def _device_kwargs(factory: Callable, kwargs: Dict[str, Any],
+                   device) -> Dict[str, Any]:
+    """``kwargs`` with ``device`` added when the factory takes a
+    ``device`` parameter and ``kwargs`` does not already name one."""
+    if device is None or "device" in kwargs:
+        return kwargs
+    try:
+        takes = "device" in inspect.signature(factory).parameters
+    except (TypeError, ValueError):
+        takes = False
+    return dict(kwargs, device=device) if takes else kwargs
+
+
+def resolve_workload(spec: JobSpec, device=None) -> Payload:
+    """Resolve ``spec`` to ``(step_fn, params, opt_state, batch)``, on
+    ``device`` where the factory takes one and the params name none.
 
     Raises ``ValueError`` when the spec names nothing resolvable."""
     if spec.payload is not None:
@@ -81,7 +99,8 @@ def resolve_workload(spec: JobSpec) -> Payload:
         raise ValueError(
             f"job {spec.job_id!r}: unknown workload {spec.workload!r} "
             f"(registered: {', '.join(registered_workloads()) or 'none'})")
-    return factory(**dict(spec.workload_params))
+    return factory(**_device_kwargs(factory, dict(spec.workload_params),
+                                    device))
 
 
 def register_serve_workload(name: str, factory: ServeFactory) -> None:
@@ -96,9 +115,10 @@ def registered_serve_workloads() -> Tuple[str, ...]:
     return tuple(sorted(_SERVE_REGISTRY))
 
 
-def resolve_serve_workload(spec: JobSpec) -> Tuple[Any, Any]:
-    """Resolve a ``kind="serve"`` spec to ``(serving_engine, requests)``;
-    an unresolvable spec raises ``ValueError``."""
+def resolve_serve_workload(spec: JobSpec, device=None) -> Tuple[Any, Any]:
+    """Resolve a ``kind="serve"`` spec to ``(serving_engine, requests)``,
+    on ``device`` where the factory takes one; an unresolvable spec raises
+    ``ValueError``."""
     if spec.kind != "serve":
         raise ValueError(f"job {spec.job_id!r}: not a serve spec")
     name = spec.workload or "lm"
@@ -109,7 +129,7 @@ def resolve_serve_workload(spec: JobSpec) -> Tuple[Any, Any]:
         raise ValueError(
             f"job {spec.job_id!r}: unknown serve workload {name!r} "
             f"(registered: {', '.join(registered_serve_workloads()) or 'none'})")
-    return factory(spec.serve)
+    return factory(spec.serve, **_device_kwargs(factory, {}, device))
 
 
 def make_lm_serving(sp, device=None) -> Tuple[Any, Any]:

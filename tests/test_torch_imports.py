@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and not ``tools/experience_torch.py`` loads JAX or the
-JAX package; and its entry points
-refuse to run on a missing card instead of falling back to the CPU."""
+``chip_smoke.py`` and not the port's tools (``tools/experience_torch.py``,
+``tools/tensile_svc_torch.py``, ``tools/tensile_trace_torch.py``) loads
+JAX or the JAX package; and its entry points refuse to run on a missing
+card instead of falling back to the CPU."""
 import os
 import subprocess
 import sys
@@ -16,8 +17,8 @@ from repro_torch.models.registry import get_model
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # the TENSILE loop's, the SSM slice's, the multi-job runtime's, the
-# experience plane's, the training launcher's, the MoE slice's and the
-# whisper slice's modules:
+# experience plane's, the training launcher's, the MoE slice's, the
+# whisper slice's and the service and observability planes' modules:
 # each must be among those walked and checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
@@ -30,7 +31,9 @@ TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "obs.metrics", "obs.drift", "core.integration", "optim.compression",
     "data.pipeline", "checkpoint.manager", "runtime.stragglers",
     "runtime.fault_tolerance", "launch.train", "models.moe",
-    "models.whisper")]
+    "models.whisper", "obs.trace", "service.store", "service.daemon",
+    "service.client", "launch.serve")]
+PORT_TOOLS = ["experience_torch", "tensile_svc_torch", "tensile_trace_torch"]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -43,15 +46,17 @@ def test_port_and_chip_smoke_import_no_jax():
             importlib.import_module(name)
         import chip_smoke
         import importlib.util
-        tool = importlib.util.spec_from_file_location(
-            "experience_torch", "tools/experience_torch.py")
-        tool.loader.exec_module(importlib.util.module_from_spec(tool))
+        for name in TOOLS:
+            tool = importlib.util.spec_from_file_location(
+                name, f"tools/{name}.py")
+            tool.loader.exec_module(importlib.util.module_from_spec(tool))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         missing = sorted(set(TENSILE) - set(names))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 20 else 0)
-    """).replace("TENSILE", repr(TENSILE_MODULES))
+    """).replace("TENSILE", repr(TENSILE_MODULES)).replace(
+        "TOOLS", repr(PORT_TOOLS))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -104,3 +109,27 @@ def test_mamba2_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine("mamba2-780m")
     assert get_model(cfg, "cpu").device == torch.device("cpu")
+
+
+def _tool(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv", [
+    ["tensile_trace_torch", "record", "--out", "t.json"],
+    ["tensile_trace_torch", "metrics-smoke", "--root", "svc"],
+    ["tensile_svc_torch", "start", "--root", "svc"]])
+def test_service_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                 monkeypatch, argv):
+    from repro_torch.service import SchedulerDaemon
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SchedulerDaemon(str(tmp_path / "d"))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _tool(argv[0]).main()

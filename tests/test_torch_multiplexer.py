@@ -18,6 +18,7 @@ import enum
 import os
 import runpy
 import sys
+import threading
 import types
 
 import jax
@@ -452,6 +453,101 @@ def test_by_default_a_job_runs_its_plan_as_planned(monkeypatch):
     assert budgets == [None, None]
     assert sum(st.budget_evictions + st.budget_waits for st in h.stats) == 0
     assert gc.global_peak_bytes > cap
+
+
+def test_a_held_slice_shrinks_in_the_running_iteration(monkeypatch):
+    """With ``hold_slices``, an arrival that shrinks a running job's slice
+    reaches that job's executor at once: the iteration planned for the
+    whole capacity is held to the smaller slice, so the two jobs stay
+    within the capacity.  The first job is held before its first operator
+    until the second is submitted (no timing decides the order)."""
+    started, go = threading.Event(), threading.Event()
+    run = tc.FxExecutor.run_donated
+
+    def held(self, args):
+        if self.seq.job_id == "x" and not go.is_set():
+            started.set()
+            go.wait(60)
+        return run(self, args)
+
+    monkeypatch.setattr(tc.FxExecutor, "run_donated", held)
+    x = _solo(*LARGE, seed=1, job_id="x")
+    cap = x["peak"]
+    gc = tc.GlobalController(profile=PROFILE, async_swap=True,
+                             pipeline_name="tensile+autoscale",
+                             arbiter_policy="priority", device_capacity=cap,
+                             device="cpu", cost_model=tc.CostModel(CALIB),
+                             hold_slices=True)
+    spec_y = JobSpec("y", iterations=1, priority=1.0,
+                     payload=make_mlp(*SMALL, device="cpu"))
+    cap_y = gc.capture_spec(spec_y)
+    hx = gc.submit(JobSpec("x", iterations=1, priority=3.0,
+                           payload=x["payload"]))
+    try:
+        assert started.wait(60)
+        ex = hx.executor
+        assert ex.budget_bytes == hx.budget_bytes == cap
+        gc.submit(spec_y, cap_y)
+        assert hx.budget_bytes == gc.arbiter.last_assignment["x"] < cap
+        assert ex.budget_bytes == hx.budget_bytes
+    finally:
+        go.set()
+        gc.wait(timeout=300)
+    assert gc.global_peak_bytes <= cap
+    step, params, opt, batch = make_mlp(*LARGE, seed=1, device="cpu")
+    seq, gm = tc.capture_train_step(step, params, opt, batch)
+    outs = tc.FxExecutor(gm, seq, None).run(params, opt, batch)
+    n = len(torch.utils._pytree.tree_leaves(hx.args[:2]))
+    assert _equal(torch.utils._pytree.tree_leaves(hx.args[:2]), outs[:n])
+
+
+def test_a_held_slice_below_an_operator_still_finishes_the_iteration(
+        monkeypatch):
+    """An arrival whose split leaves a running job less than one of its
+    operators must hold at once: the running executor's guard takes the
+    operator floor instead of the slice, and the job finishes its
+    iteration with the values of its unscheduled run (with the slice
+    itself the guard raised ``BudgetExceededError`` at its first
+    booking).  The first job is held before its first operator until the
+    second is submitted."""
+    started, go = threading.Event(), threading.Event()
+    run = tc.FxExecutor.run_donated
+
+    def held(self, args):
+        if self.seq.job_id == "x" and not go.is_set():
+            started.set()
+            go.wait(60)
+        return run(self, args)
+
+    monkeypatch.setattr(tc.FxExecutor, "run_donated", held)
+    x = _solo(*LARGE, seed=1, job_id="x")
+    cap = x["peak"]
+    gc = tc.GlobalController(profile=PROFILE, async_swap=True,
+                             pipeline_name="tensile+autoscale",
+                             arbiter_policy="priority", device_capacity=cap,
+                             device="cpu", cost_model=tc.CostModel(CALIB),
+                             hold_slices=True)
+    spec_y = JobSpec("y", iterations=1, priority=1000.0,
+                     payload=make_mlp(*LARGE, seed=2, device="cpu"))
+    cap_y = gc.capture_spec(spec_y)
+    hx = gc.submit(JobSpec("x", iterations=1, priority=1.0,
+                           payload=x["payload"]))
+    try:
+        assert started.wait(60)
+        ex = hx.executor
+        gc.submit(spec_y, cap_y)
+        floor = ex.operator_floor()
+        assert hx.budget_bytes == gc.arbiter.last_assignment["x"] < floor
+        assert ex.budget_bytes == floor < cap
+    finally:
+        go.set()
+        gc.wait(timeout=300)
+    assert not hx.error and gc.jobs["y"].error is None
+    step, params, opt, batch = make_mlp(*LARGE, seed=1, device="cpu")
+    seq, gm = tc.capture_train_step(step, params, opt, batch)
+    outs = tc.FxExecutor(gm, seq, None).run(params, opt, batch)
+    n = len(torch.utils._pytree.tree_leaves(hx.args[:2]))
+    assert _equal(torch.utils._pytree.tree_leaves(hx.args[:2]), outs[:n])
 
 
 def test_job_thread_failure_surfaces_through_wait(monkeypatch):

@@ -10,6 +10,7 @@ hooks that feed the monitor and the store (``core/multiplexer.py``).
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 import repro.core as rc
@@ -218,3 +219,68 @@ def test_controller_feeds_the_drift_monitor(tmp_path):
         fingerprint=cold.fingerprint[:12]) == cold.peak_drift
     hist = tc.ExperienceStore(root).drift_history(cold.fingerprint)
     assert [r.job_id for r in hist] == ["run0", "run1"]
+
+
+class SeededHub(tc.TelemetryHub):
+    """A hub whose measured latencies are drawn from a numpy seed, in place
+    of the wall clock's: each operator's capture-time latency times
+    10 ** U(0, 3) (a loaded host), the same draws for every query."""
+
+    def __init__(self, seed: int):
+        super().__init__(clock="real")
+        self.rng = np.random.default_rng(seed)
+        self.capture_latencies = {}
+        self.drawn = {}
+
+    def op_latencies(self, job_id):
+        measured = super().op_latencies(job_id)
+        if job_id not in self.drawn:
+            base = self.capture_latencies[job_id]
+            self.drawn[job_id] = {i: base[i] * 10 ** self.rng.uniform(0, 3)
+                                  for i in sorted(measured)}
+        return dict(self.drawn[job_id])
+
+    def latency_sum(self, job_id):
+        return sum(self.op_latencies(job_id).values())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_warm_run_keeps_the_cold_plan_under_drifting_latencies(tmp_path,
+                                                               seed):
+    """The drift case above with measured latencies drawn from a seed
+    instead of the wall clock.  After a job's last iteration a drift
+    replan would make a plan that never runs, which the store would hand
+    the warm run beside the peak the plan before it produced (warm drift
+    0.20-0.73 with a WARN on these seeds).  A job whose plan kept to its
+    slice keeps that plan instead: the warm run, booted from it, measures
+    exactly the peak the store predicts."""
+    root = str(tmp_path / "exp")
+    runs = []
+    for run in range(2):
+        events = EventLog()
+        hub = SeededHub(2 * seed + run)
+        ctl = tc.GlobalController(profile=PROFILE, experience_dir=root,
+                                  async_swap=False, device="cpu",
+                                  events=events, telemetry=hub)
+        ctl.drift = DriftMonitor(experience=ctl.experience, events=events,
+                                 metrics=MetricsRegistry())
+        spec = JobSpec(f"run{run}", iterations=1,
+                       payload=make_mlp((12, 24, 6), 4, device="cpu"))
+        cap = ctl.capture_spec(spec)
+        hub.capture_latencies[spec.job_id] = [
+            op.latency for op in cap.seq.operators]
+        h = ctl.submit(spec, cap)
+        ctl.wait(timeout=120)
+        runs.append((ctl.drift.last(h.fingerprint), events.warnings(),
+                     ctl.replan_count))
+    (cold, warn0, n0), (warm, warn1, n1) = runs
+    assert [w.source for w in warn0] == ["drift"]
+    assert warm.predicted_peak == cold.measured_peak
+    assert warm.measured_peak == cold.measured_peak
+    assert warm.peak_drift == 0.0 and not warn1
+    # the hub reports drift past the threshold, yet no replan followed
+    # the only iteration
+    assert hub.drift_ratio(spec.job_id, sum(
+        hub.capture_latencies[spec.job_id])) > \
+        ctl.scheduler.config.update_threshold
+    assert n0 == n1 == 1
