@@ -24,9 +24,19 @@ Fault-tolerance contract:
 
 A state is a pytree of tensors (dicts, lists, tuples, NamedTuples such as
 ``AdamState``) whose nodes may also be ``torch.nn.Module``s (their
-parameters, by name).  numpy has no bfloat16: a bf16 leaf is stored as its
-raw 16-bit words and its dtype in ``meta.json``, and comes back bit for
-bit.  ``zstandard`` is optional, as in the reference; a checkpoint written
+parameters, by name).  A DTensor leaf (a state on a device mesh) is saved
+whole: every rank gathers it (a collective, so every rank of its mesh
+saves at the same step) and the mesh's first rank writes it.  On a mesh
+of several ranks the ranks then agree over the mesh: ``save`` returns on
+no rank before the step is committed (``save_async``: ``wait``), a failed
+write raises on every rank, and ``latest_step(template)`` and
+``restore(template=)`` read the step the first rank sees, so every rank
+resumes from the same one.  ``restore(template=)`` into a DTensor leaf
+distributes the whole saved tensor onto that leaf's mesh and placements,
+so a state saved on one mesh restores onto another (the reference's
+elastic restore).  numpy has no
+bfloat16: a bf16 leaf is stored as its raw 16-bit words and its dtype in
+``meta.json``, and comes back bit for bit.  ``zstandard`` is optional, as in the reference; a checkpoint written
 without it restores anywhere.
 """
 from __future__ import annotations
@@ -40,7 +50,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
+
+from ..device import is_dtensor
 
 try:
     import zstandard as _zstd
@@ -63,7 +76,10 @@ def _leaves(tree: Any) -> List[Tuple[str, torch.Tensor]]:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` as numpy (bf16 as its 16-bit words)."""
+    """A host copy of ``t`` as numpy (bf16 as its 16-bit words); of a
+    DTensor, its whole value."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
@@ -79,6 +95,31 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
+def _mesh_of(leaves: List[Tuple[str, torch.Tensor]]):
+    """The mesh of the first DTensor leaf, when it spans several ranks."""
+    for _, t in leaves:
+        if is_dtensor(t):
+            return t.device_mesh if t.device_mesh.size() > 1 else None
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes: the only one, or the mesh's first."""
+    return mesh is None or int(mesh.mesh.flatten()[0]) == dist.get_rank()
+
+
+def _from_writer(mesh, value: int) -> int:
+    """The writing rank's ``value`` on every rank of ``mesh`` (a sum over
+    the mesh to which only that rank adds): a broadcast, and a barrier."""
+    if mesh is None:
+        return value
+    from torch.distributed.tensor import DTensor, Partial
+    t = torch.tensor([value if _writes(mesh) else 0], dtype=torch.int64,
+                     device=mesh.device_type)
+    return int(DTensor.from_local(t, mesh, [Partial()] * mesh.ndim,
+                                  run_check=False).full_tensor().item())
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, host_id: int = 0,
                  n_hosts: int = 1):
@@ -89,12 +130,21 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._async_thread: Optional[threading.Thread] = None
         self._async_err: Optional[BaseException] = None
+        self._async_mesh = None
 
     # ------------------------------------------------------------------
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:09d}")
 
-    def latest_step(self) -> Optional[int]:
+    def latest_step(self, template: Any = None) -> Optional[int]:
+        """The newest committed step, or None.  With a ``template`` on a
+        mesh of several ranks, the one its first rank sees, on every
+        rank."""
+        mesh = None if template is None else _mesh_of(_leaves(template))
+        if mesh is not None:
+            seen = self.latest_step() if _writes(mesh) else None
+            step = _from_writer(mesh, -1 if seen is None else seen)
+            return None if step < 0 else step
         best = None
         for name in os.listdir(self.dir):
             if not name.startswith("step_"):
@@ -110,16 +160,45 @@ class CheckpointManager:
     def save(self, step: int, state: Any,
              extra_meta: Optional[Dict] = None) -> str:
         """Synchronous atomic save of a state."""
-        return self._write(step, self._snapshot(state), extra_meta)
+        mesh, snap = self._snapshot(state)
+        try:
+            d = self._write(step, snap, extra_meta)
+        except BaseException as e:  # noqa: BLE001 - raised on every rank
+            self._agree(mesh, e)
+        self._agree(mesh, None)
+        return d
 
     @staticmethod
-    def _snapshot(state: Any) -> List[Tuple[str, str, np.ndarray]]:
-        return [(path, _dtype_name(t), _to_numpy(t))
-                for path, t in _leaves(state)]
+    def _snapshot(state: Any):
+        """The state's mesh (of several ranks, else None) and, on the rank
+        that writes, its leaves on the host."""
+        leaves = _leaves(state)
+        mesh = _mesh_of(leaves)
+        if not _writes(mesh):
+            # this rank takes part in the gathers; the first rank writes
+            for _, t in leaves:
+                if is_dtensor(t):
+                    t.full_tensor()
+            return mesh, None
+        return mesh, [(path, _dtype_name(t), _to_numpy(t))
+                      for path, t in leaves]
+
+    @staticmethod
+    def _agree(mesh, err: Optional[BaseException]) -> None:
+        """Wait for the writing rank of ``mesh``; raise its failure, on
+        every rank."""
+        failed = _from_writer(mesh, int(err is not None))
+        if err is not None:
+            raise err
+        if failed:
+            raise RuntimeError("the checkpoint write failed on the mesh's "
+                               "first rank")
 
     def _write(self, step: int, snap: List[Tuple[str, str, np.ndarray]],
                extra_meta: Optional[Dict]) -> str:
         d = self._step_dir(step)
+        if snap is None:
+            return d
         tmp = d + f".tmp{self.host_id}"
         os.makedirs(tmp, exist_ok=True)
         buf_path = os.path.join(tmp, f"shard_{self.host_id:05d}.npz")
@@ -154,7 +233,8 @@ class CheckpointManager:
         """Background save; joins any previous in-flight save first.  The
         state is copied to host memory before this returns."""
         self.wait()
-        snap = self._snapshot(state)
+        mesh, snap = self._snapshot(state)
+        self._async_mesh = mesh
 
         def work():
             try:
@@ -166,12 +246,14 @@ class CheckpointManager:
         self._async_thread.start()
 
     def wait(self) -> None:
-        if self._async_thread is not None:
-            self._async_thread.join()
-            self._async_thread = None
-        if self._async_err is not None:
-            err, self._async_err = self._async_err, None
-            raise err
+        """Join the save in flight; on a mesh of several ranks, also wait
+        for the writing rank's."""
+        if self._async_thread is None:
+            return
+        self._async_thread.join()
+        self._async_thread = None
+        err, self._async_err = self._async_err, None
+        self._agree(self._async_mesh, err)
 
     # ------------------------------------------------------------------
     def restore(self, step: Optional[int] = None, template: Any = None
@@ -180,7 +262,7 @@ class CheckpointManager:
         its meta.  With ``template`` each leaf is copied into the
         template's tensor (same path, shape and dtype, else ValueError)
         and the template is returned; without, a list of CPU tensors."""
-        step = step if step is not None else self.latest_step()
+        step = step if step is not None else self.latest_step(template)
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         d = self._step_dir(step)
@@ -191,9 +273,12 @@ class CheckpointManager:
             if _zstd is None:
                 raise RuntimeError(f"{buf_path}.zst needs the zstandard "
                                    f"module to restore")
+            # ranks restoring side by side each decompress, then rename
+            part = f"{buf_path}.{os.getpid()}"
             with open(buf_path + ".zst", "rb") as src, \
-                    open(buf_path, "wb") as dst:
+                    open(part, "wb") as dst:
                 _zstd.ZstdDecompressor().copy_stream(src, dst)
+            os.replace(part, buf_path)
         with np.load(buf_path) as data:
             if template is None:
                 return [_from_numpy(data[f"leaf_{i}"], dt) for i, dt in
@@ -210,7 +295,14 @@ class CheckpointManager:
                         raise ValueError(
                             f"{path}: saved {dt}{list(src.shape)}, live "
                             f"{_dtype_name(t)}{list(t.shape)}")
-                    t.copy_(src)
+                    if is_dtensor(t):
+                        from torch.distributed.tensor import distribute_tensor
+                        local = t.to_local()
+                        local.copy_(distribute_tensor(
+                            src.to(local.device), t.device_mesh,
+                            t.placements, src_data_rank=None).to_local())
+                    else:
+                        t.copy_(src)
         return template, meta
 
     # ------------------------------------------------------------------

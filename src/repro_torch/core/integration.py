@@ -35,6 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from ..device import is_dtensor
 from .access import AccessSequence, TensorKind
 from .plan import EventType, MachineProfile, SchedulingPlan
 from .scheduler import MemoryScheduler, SchedulerConfig
@@ -75,7 +76,14 @@ TAG = torch.ops.repro_torch.checkpoint_name.default
 
 def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
     """Tag ``x`` (a copy of it) with ``name`` for a remat policy: one op the
-    policy sees, whose output it saves when the name is kept."""
+    policy sees, whose output it saves when the name is kept.  A DTensor
+    is tagged on its local shard (DTensor has no rule for the op) and
+    comes back with its placements."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            torch.ops.repro_torch.checkpoint_name(x.to_local(), name),
+            x.device_mesh, x.placements, run_check=False)
     return torch.ops.repro_torch.checkpoint_name(x, name)
 
 

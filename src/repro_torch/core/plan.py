@@ -378,6 +378,9 @@ class MachineProfile:
     device_memory_bytes: int = 80 * 10 ** 9          # H100 SXM HBM3
     compute_flops: float = 989e12                    # dense bf16 tensor cores
     mem_bw: float = 3.35e12                          # HBM B/s
+    # NVLink 4, per link and direction: 900 GB/s over 18 links, both
+    # directions (data sheet); nothing in the planner reads it yet
+    ici_bw: float = 25e9
     # host<->device copies of pinned memory, measured by chip_smoke.py on
     # an H100 80GB HBM3 (700 W limit): the slower direction's rate at
     # 256 MiB (host to device), the median host-clock time of a 512-byte

@@ -20,3 +20,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (a tensor on a device mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)

@@ -10,6 +10,14 @@ always on the CUDA cores.  On a CPU tensor it runs
 ``ref.flash_attention_ref``.  The wrapper counts its kernel launches in
 ``.launches``.
 
+A DTensor input (a prefill under a mesh, ``launch.sharding``) is
+unwrapped on both devices: the kernel, or on the CPU its plain version,
+runs on each rank's local shards, since DTensor has no sharding rule for
+it.  Attention is local per head and per sequence of the batch, so q
+keeps its batch and head sharding and k, v follow it; where q's heads are
+sharded and the KV heads are whole (the reference's ``tp_kv`` fallback),
+the KV heads are cut to the groups of the rank's query heads.
+
 Forward only, as in the JAX package, where ``jax.grad`` through the Pallas
 call fails: with grad mode on and an input that requires grad it raises
 instead of letting autograd differentiate anything.
@@ -22,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import is_dtensor
 from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
@@ -87,6 +96,43 @@ def _tma_ready(t: torch.Tensor) -> bool:
             and all(s % 8 == 0 for s in _head_strides(t)))
 
 
+def _on_local_shards(q, k, v, causal: bool, sliding_window: int):
+    """``flash_attention_fwd`` of DTensors: q's batch (dim 0) and head
+    (dim 2) shards kept, every other dim gathered; k and v on q's batch
+    shards, on its head shards too where they are head-sharded, else
+    whole heads cut to the rank's groups.  Returns a DTensor placed as
+    q."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = q.device_mesh
+    qp = [p if p.is_shard() and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+    kp = [Shard(0) if p.is_shard(0) else
+          Shard(2) if p.is_shard(2) and k.placements[i].is_shard(2) else
+          Replicate() for i, p in enumerate(qp)]
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kp) for t in (k, v))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    group = q.shape[2] // k.shape[2]
+    q0 = compute_local_shape_and_global_offset(q.shape, mesh, qp)[1][2]
+    k0 = compute_local_shape_and_global_offset(k.shape, mesh, kp)[1][2]
+    hl = ql.shape[2]
+    lo, hi = q0 // group, (q0 + hl - 1) // group + 1
+    if not (k0 <= lo and hi <= k0 + kl.shape[2]):
+        raise ValueError(f"query heads {q0}..{q0 + hl} need KV heads "
+                         f"{lo}..{hi}, the rank holds {k0}.."
+                         f"{k0 + kl.shape[2]}")
+    if (hi - lo) * group != hl and not (hi - lo == 1
+                                         and group % hl == 0):
+        raise ValueError(f"query heads {q0}..{q0 + hl} do not cover whole "
+                         f"groups of {group}")
+    kl, vl = (t[:, :, lo - k0:hi - k0] for t in (kl, vl))
+    out = flash_attention_fwd(ql, kl, vl, causal=causal,
+                              sliding_window=sliding_window)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         sliding_window: int = 0) -> torch.Tensor:
@@ -97,6 +143,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     aligned or a stride that is not a multiple of 8 elements, and a head
     dim that is not a multiple of 8 is zero-padded to one."""
     _check(q, k, v, sliding_window)
+    if any(map(is_dtensor, (q, k, v))):
+        return _on_local_shards(q, k, v, causal, sliding_window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    sliding_window=sliding_window)

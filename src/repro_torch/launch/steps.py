@@ -24,12 +24,29 @@
   updated in place.
 
 PyTorch runs eagerly, so there is no jit; prefill and decode run under
-``torch.inference_mode()``.  The port has no mesh, so there are no
-sharding rules, and the compressed gradients are the reduced ones (the
-reference's compressed collective waits for the mesh).
+``torch.inference_mode()`` (a prefill under rules under ``no_grad``).
+
+Each builder takes ``rules`` (``launch.sharding.MeshRules``), the
+reference's second argument, as a keyword.  Under rules the parameters
+are DTensors on the rules' mesh (``sharding.shard_params`` places a plain
+module's leaves, in place, on the step's first call), the batch is
+``Shard(0)`` over the data axes where they divide it, the model's
+``constrain`` calls redistribute activations, and plain tensors the model
+makes (positions, masks) count as replicated.  The gradients are
+redistributed to their parameters' placements (the data-parallel
+reduction), the clip norm is replicated before its square root, int8
+compression quantizes the blocks of each whole leaf, as the reference's
+reduced gradients, and AdamW updates the DTensor leaves in place.  The
+train step's metrics are plain tensors, the same on every rank; the
+prefill's logits stay a DTensor (``full_tensor()`` gathers them).  Not
+under a mesh of more than one device: host-resident optimizer state and
+the decode step, whose caches the reference shards over ``kv_seq``; both
+raise ``NotImplementedError``.  On a one-device mesh the decode step runs
+on the parameters' local tensors, which are the whole ones.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional
 
@@ -40,6 +57,8 @@ from ..core.integration import opt_state_placement
 from ..optim.adam import (AdamState, adamw_init, adamw_step, adamw_update,
                           global_norm)
 from ..optim.compression import ef_compress_grads
+from ..device import is_dtensor
+from .sharding import MeshRules, local_params, shard_params, use_rules
 
 
 @dataclasses.dataclass
@@ -59,47 +78,84 @@ class TrainStepConfig:
 def _grads(loss: torch.Tensor, named: Dict[str, torch.Tensor]):
     """d loss / d each of ``named``.  A leaf the loss never reads gets
     zeros, as ``jax.grad`` gives it (whisper's cross-attention biases);
-    a leaf it reads gets the same gradient as without that rule."""
-    return dict(zip(named, torch.autograd.grad(
-        loss, list(named.values()), allow_unused=True,
-        materialize_grads=True)))
+    a leaf it reads gets the same gradient as without that rule.  A
+    DTensor leaf's gradient is redistributed to the leaf's placements:
+    the data-parallel reduction."""
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True, materialize_grads=True)
+    return {k: g.redistribute(named[k].device_mesh, named[k].placements)
+            if is_dtensor(g) else g for k, g in zip(named, grads)}
 
 
-def build_train_step(api, tcfg: Optional[TrainStepConfig] = None):
+@contextlib.contextmanager
+def _under(rules: Optional[MeshRules]):
+    """The model's context under ``rules``: its ``constrain`` calls
+    active, and plain tensors it makes taken as replicated."""
+    if rules is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with use_rules(rules), implicit_replication():
+        yield
+
+
+def _sharded_batch(rules: Optional[MeshRules], batch):
+    """``batch`` with each plain leaf distributed by ``batch_sharding``
+    (every rank holds the same global batch)."""
+    if rules is None:
+        return batch
+    shardings = rules.batch_sharding(batch)
+    return {k: x if is_dtensor(x) else shardings[k].distribute(x)
+            for k, x in batch.items()}
+
+
+def _many_devices(rules: Optional[MeshRules]) -> bool:
+    return rules is not None and rules.mesh.size() > 1
+
+
+def build_train_step(api, tcfg: Optional[TrainStepConfig] = None, *,
+                     rules: Optional[MeshRules] = None):
     tcfg = tcfg or TrainStepConfig()
     if tcfg.grad_compression not in (None, "int8"):
         raise ValueError(f"grad_compression={tcfg.grad_compression!r}: "
                          f"None or 'int8'")
+    if tcfg.offload_opt_state and _many_devices(rules):
+        raise NotImplementedError(
+            "offload_opt_state under a mesh of more than one device: the "
+            "host-resident moments are not DTensors yet")
 
     def loss_of(params, batch):
         return api.loss(params, batch, remat_policy=tcfg.remat_policy)
 
     def train_step(params, opt_state: AdamState, batch):
+        if rules is not None:
+            shard_params(params, rules)
         named = dict(params.named_parameters())
         for p in named.values():
             p.requires_grad_(True)
         try:
-            with torch.enable_grad():
+            # the backward recomputes checkpointed blocks: under the rules
+            with torch.enable_grad(), _under(rules):
                 n_mb = tcfg.microbatches
                 if n_mb > 1:
                     # gradient accumulation: activations shrink by n at the
                     # cost of an fp32 gradient accumulator
-                    grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device)
+                    grads = {k: torch.zeros_like(p.detach(),
+                                                 dtype=torch.float32)
                              for k, p in named.items()}
                     loss = torch.zeros((), device=opt_state.step.device)
                     for i in range(n_mb):
                         mb = {k: x.reshape((n_mb, x.shape[0] // n_mb)
                                            + tuple(x.shape[1:]))[i]
                               for k, x in batch.items()}
-                        lm = loss_of(params, mb)
+                        lm = loss_of(params, _sharded_batch(rules, mb))
                         for k, g in _grads(lm, named).items():
                             grads[k] += g.float()
                         loss = loss + lm.detach()
                     grads = {k: a / n_mb for k, a in grads.items()}
                     loss = loss / n_mb
                 else:
-                    loss = loss_of(params, batch)
+                    loss = loss_of(params, _sharded_batch(rules, batch))
                     grads = _grads(loss, named)
                     loss = loss.detach()
         finally:
@@ -109,10 +165,13 @@ def build_train_step(api, tcfg: Optional[TrainStepConfig] = None):
             grads, opt_state = ef_compress_grads(grads, opt_state)
         if tcfg.offload_opt_state:
             opt_state = opt_state_to_host(opt_state)
-        _, new_opt = adamw_update(
-            named, grads, opt_state, lr=tcfg.learning_rate,
-            weight_decay=tcfg.weight_decay,
-            grad_clip_norm=tcfg.grad_clip_norm)
+        with _under(rules):
+            _, new_opt = adamw_update(
+                named, grads, opt_state, lr=tcfg.learning_rate,
+                weight_decay=tcfg.weight_decay,
+                grad_clip_norm=tcfg.grad_clip_norm)
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}
         return params, new_opt, metrics
 
@@ -165,17 +224,30 @@ def build_functional_train_step(api, tcfg: Optional[TrainStepConfig] = None):
     return train_step
 
 
-def build_prefill_step(api):
+def build_prefill_step(api, *, rules: Optional[MeshRules] = None):
     def prefill_step(params, batch):
-        with torch.inference_mode():
-            logits, _ = api.forward(params, batch)
+        if rules is not None:
+            shard_params(params, rules)
+        # a DTensor's views cannot be made in inference mode
+        with (torch.inference_mode() if rules is None else torch.no_grad()
+              ), _under(rules):
+            logits, _ = api.forward(params, _sharded_batch(rules, batch))
         return logits
 
     return prefill_step
 
 
-def build_serve_step(api):
+def build_serve_step(api, *, rules: Optional[MeshRules] = None):
+    if _many_devices(rules):
+        raise NotImplementedError(
+            "the decode step under a mesh of more than one device: the "
+            "reference shards its caches over kv_seq; the port's serving "
+            "is meshless")
+    shell = api.shell() if rules is not None else None
+
     def serve_step(params, cache, batch, index):
+        if shell is not None:
+            params = local_params(params, shell)
         with torch.inference_mode():
             return api.decode(params, batch, cache, index)
 

@@ -6,9 +6,21 @@
 Composes: config → model → TENSILE memory planning (the train step
 captured on fake tensors, planned under a device budget, its decisions as
 a remat policy) → data pipeline with prefetch → resilient train loop
-(async checkpoints, restart-on-failure, straggler monitor).  The port has
-no mesh: one device, the card unless ``--device`` names another.  Random
-weights from seed 0.
+(async checkpoints, restart-on-failure, straggler monitor).  Random
+weights from seed 0; the card unless ``--device`` names another.
+
+Under ``torchrun`` with ``WORLD_SIZE > 1`` the launcher builds
+``make_host_mesh()`` over the world, as the reference does, and trains
+under ``MeshRules`` (parameters and moments DTensors, the batch sharded
+over the data axis); ``--mesh DATA,MODEL`` names the grid, and on a world
+of one builds that mesh too:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --reduced --mesh 2,2
+
+A world of one without ``--mesh`` stays meshless: the arithmetic of the
+reference's one-device host mesh.  A TENSILE budget is planned on the
+step as one device runs it, before the parameters are sharded.
 """
 from __future__ import annotations
 
@@ -28,7 +40,27 @@ from ..models.registry import get_model
 from ..optim.adam import adamw_init
 from ..runtime.fault_tolerance import FTConfig, resilient_train_loop
 from ..runtime.stragglers import StragglerMonitor
+from .sharding import shard_params
 from .steps import TrainStepConfig, build_train_step, opt_state_for
+
+
+def _mesh_rules(spec, dev: torch.device, cfg):
+    """``MeshRules`` over the world for ``--mesh DATA,MODEL``, or under
+    ``torchrun`` with more than one rank; None for a meshless run."""
+    if spec is None and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    from .mesh import init_world, make_host_mesh, make_mesh
+    from .sharding import MeshRules
+    world = init_world(dev)
+    if spec is None:
+        mesh = make_host_mesh(device=dev.type)
+    else:
+        shape = tuple(int(n) for n in spec.split(","))
+        if len(shape) != 2 or shape[0] * shape[1] != world:
+            raise ValueError(f"--mesh {spec}: need DATA,MODEL with "
+                             f"DATA x MODEL = {world} ranks")
+        mesh = make_mesh(shape, ("data", "model"), device=dev.type)
+    return MeshRules(mesh, cfg=cfg)
 
 
 def main(argv=None) -> int:
@@ -52,6 +84,9 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="train on a (data, model) mesh over the world "
+                         "(default under torchrun: make_host_mesh())")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -63,15 +98,24 @@ def main(argv=None) -> int:
     if args.d_model:
         cfg.d_model = args.d_model
     api = get_model(cfg, dev)
+    # a process group this run starts, it also ends
+    own_world = not torch.distributed.is_initialized()
+    rules = _mesh_rules(args.mesh, dev, cfg)
+    where = "" if rules is None else \
+        f" mesh={dict(zip(rules.mesh.mesh_dim_names, rules.mesh.shape))}"
     print(f"[train] arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
-          f"device={dev}")
+          f"device={dev}{where}")
 
     params = api.init(torch.Generator(device=dev).manual_seed(0))
     use_comp = args.grad_compression == "int8"
-    opt = opt_state_for(params)
-    if use_comp:
-        opt = adamw_init(dict(params.named_parameters()),
-                         grad_compression=True)
+
+    def new_opt():
+        if use_comp:
+            return adamw_init(dict(params.named_parameters()),
+                              grad_compression=True)
+        return opt_state_for(params)
+
+    opt = new_opt()
 
     dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                       vocab_size=cfg.vocab_size, frontend=cfg.frontend,
@@ -99,11 +143,14 @@ def main(argv=None) -> int:
         print(f"[tensile] {decisions.summary()}")
         remat_policy = make_remat_policy(decisions)
 
+    if rules is not None:
+        shard_params(params, rules)
+        opt = new_opt()
     tcfg = TrainStepConfig(
         learning_rate=args.lr,
         grad_compression=("int8" if use_comp else None),
         remat_policy=remat_policy)
-    step_fn = build_train_step(api, tcfg)
+    step_fn = build_train_step(api, tcfg, rules=rules)
 
     stream = TokenStream(dcfg)
     prefetch = Prefetcher(stream, to_device=move)
@@ -134,6 +181,8 @@ def main(argv=None) -> int:
     print(f"[train] done: steps={result.final_step + 1} "
           f"restarts={result.restarts} loss {first:.4f} -> {last:.4f}")
     assert np.isfinite(last), "training diverged"
+    if rules is not None and own_world:
+        torch.distributed.destroy_process_group()
     return 0
 
 

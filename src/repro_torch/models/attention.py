@@ -22,7 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention_fwd
-from .layers import ParamTree, apply_rope, dense_init, zeros_init
+from .layers import ParamTree, apply_rope, constrain, dense_init, zeros_init
 
 NEG_INF = -1e30
 
@@ -36,14 +36,21 @@ class Attention(ParamTree):
                  lead: Sequence[int] = ()):
         super().__init__()
         kw = dict(dtype=dtype, device=device, lead=lead)
-        self.wq = dense_init(gen, (d_model, n_heads, head_dim), **kw)
-        self.wk = dense_init(gen, (d_model, n_kv_heads, head_dim), **kw)
-        self.wv = dense_init(gen, (d_model, n_kv_heads, head_dim), **kw)
-        self.wo = dense_init(gen, (n_heads, head_dim, d_model), **kw)
+        self.wq = dense_init(gen, (d_model, n_heads, head_dim),
+                             axes=("embed", "heads", None), **kw)
+        self.wk = dense_init(gen, (d_model, n_kv_heads, head_dim),
+                             axes=("embed", "kv_heads", None), **kw)
+        self.wv = dense_init(gen, (d_model, n_kv_heads, head_dim),
+                             axes=("embed", "kv_heads", None), **kw)
+        self.wo = dense_init(gen, (n_heads, head_dim, d_model),
+                             axes=("heads", None, "embed"), **kw)
         if qkv_bias:
-            self.bq = zeros_init((n_heads, head_dim), **kw)
-            self.bk = zeros_init((n_kv_heads, head_dim), **kw)
-            self.bv = zeros_init((n_kv_heads, head_dim), **kw)
+            self.bq = zeros_init((n_heads, head_dim), axes=("heads", None),
+                                 **kw)
+            self.bk = zeros_init((n_kv_heads, head_dim),
+                                 axes=("kv_heads", None), **kw)
+            self.bv = zeros_init((n_kv_heads, head_dim),
+                                 axes=("kv_heads", None), **kw)
 
 
 def _project_qkv(p, x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -124,6 +131,8 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     k = _repeat_kv(k, h)
     v = _repeat_kv(v, h)
+    k = constrain(k, ("dp", None, "tp", None))
+    v = constrain(v, ("dp", None, "tp", None))
     skv = k.shape[1]
     cq, ckv = min(chunk, sq), min(chunk, skv)
     sq_pad, skv_pad = -sq % cq, -skv % ckv
@@ -168,6 +177,9 @@ def attention_block(p, x: torch.Tensor, positions: torch.Tensor, *, cfg,
                     use_chunked: Optional[bool] = None) -> torch.Tensor:
     """Self-attention over x: (B,S,D_model)."""
     q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
+    q = constrain(q, ("dp", None, "tp", None))
+    k = constrain(k, ("dp", None, "tp_kv", None))
+    v = constrain(v, ("dp", None, "tp_kv", None))
     if use_chunked is None:
         use_chunked = x.shape[1] > 2 * cfg.attn_chunk
     if cfg.use_flash_kernel and causal:

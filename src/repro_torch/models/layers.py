@@ -5,13 +5,20 @@ JAX package's pytree keys, so ``tree["attn"]["wq"]`` reads the same in both
 packages and a state-dict key is the JAX path joined by dots.  Layouts are
 the JAX ones (``wq`` is ``(d, H, Dh)``, ``wo`` is ``(H, Dh, d)``).  The
 layer functions are pure functions over tensors, one per JAX function.
+
+Every initializer takes the leaf's *logical* axes (``"embed"``,
+``"heads"``, ``"mlp"``, ...), as the reference's ``ParamBuilder`` records
+them, and the tree keeps them beside its leaves: ``tree.param_axes()`` is
+the reference's axes tree, a layer-stacked leaf's led by ``"layers"``.
+``launch.sharding`` maps them onto a mesh.  Activation constraints go
+through ``constrain``, a no-op until ``launch.sharding`` installs rules.
 """
 from __future__ import annotations
 
 import functools
 import itertools
 import math
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +28,28 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 Tree = Dict[str, Union[torch.Tensor, "Tree"]]
+Axes = Tuple[Optional[str], ...]
+
+# ----------------------------------------------------------------------
+# Activation-sharding context (installed by launch.sharding.use_rules()).
+# ----------------------------------------------------------------------
+_ACTIVE_RULES = None
+
+
+def set_active_rules(rules) -> None:
+    global _ACTIVE_RULES
+    _ACTIVE_RULES = rules
+
+
+def active_rules():
+    return _ACTIVE_RULES
+
+
+def constrain(x: torch.Tensor, logical: Axes) -> torch.Tensor:
+    """Constrain an activation to the mesh mapping of ``logical`` axes."""
+    if _ACTIVE_RULES is None:
+        return x
+    return _ACTIVE_RULES.constrain(x, logical)
 
 
 # ----------------------------------------------------------------------
@@ -28,7 +57,36 @@ Tree = Dict[str, Union[torch.Tensor, "Tree"]]
 # ----------------------------------------------------------------------
 class ParamTree(nn.Module):
     """An ``nn.Module`` read like the JAX param dict: ``tree[name]`` and
-    ``name in tree`` cover both parameters and child trees."""
+    ``name in tree`` cover both parameters and child trees.  A parameter
+    made by one of this module's initializers brings its logical axes,
+    which the tree records under the leaf's name (so they outlive a
+    ``load_state_dict(assign=True)``)."""
+
+    def __init__(self):
+        super().__init__()
+        self._leaf_axes: Dict[str, Axes] = {}
+
+    def __setattr__(self, name: str, value) -> None:
+        axes = getattr(value, "logical_axes", None)
+        if axes is not None:
+            self._leaf_axes[name] = axes
+        super().__setattr__(name, value)
+
+    def param_axes(self) -> Dict[str, object]:
+        """The logical axes of every leaf, in the tree's structure."""
+        out: Dict[str, object] = {}
+        for name in self._parameters:
+            out[name] = self._leaf_axes[name]
+        for name, m in self._modules.items():
+            out[name] = m.param_axes()
+        return out
+
+    def named_param_axes(self) -> Dict[str, Axes]:
+        """``param_axes()`` flat, keyed like ``named_parameters()``."""
+        return {f"{prefix}.{name}" if prefix else name: axes
+                for prefix, m in self.named_modules()
+                for name, axes in m._leaf_axes.items()
+                if name in m._parameters}
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -49,9 +107,24 @@ class ParamTree(nn.Module):
 DRAW_LIMIT_BYTES = 1 << 31
 
 
+def _leaf(t: torch.Tensor, axes: Optional[Axes],
+          lead: Sequence[int]) -> nn.Parameter:
+    """``t`` as a frozen parameter carrying its logical axes, if given (the
+    layer-stack axes of ``lead`` are ``"layers"``)."""
+    p = nn.Parameter(t, requires_grad=False)
+    if axes is None:
+        return p
+    if len(axes) + len(lead) != t.dim():
+        raise ValueError(f"axes {axes} do not name the dims of "
+                         f"{tuple(t.shape)}")
+    p.logical_axes = ("layers",) * len(lead) + tuple(axes)
+    return p
+
+
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
                device, scale: Optional[float] = None,
-               lead: Sequence[int] = ()) -> nn.Parameter:
+               lead: Sequence[int] = (), *,
+               axes: Optional[Axes] = None) -> nn.Parameter:
     """Normal(0, 1) * scale, drawn in float32 and cast, as the JAX
     ``dense_init``.  The scale rule reads the per-layer ``shape`` (fan-in is
     its first axis); ``lead`` prepends the layer-stack axes.  On the
@@ -78,19 +151,21 @@ def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
             t[idx].copy_(torch.randn(full[n:], generator=gen,
                                      dtype=torch.float32, device=device)
                          * scale)
-    return nn.Parameter(t, requires_grad=False)
+    return _leaf(t, axes, lead)
 
 
 def ones_init(shape: Sequence[int], dtype, device,
-              lead: Sequence[int] = ()) -> nn.Parameter:
-    return nn.Parameter(torch.ones(tuple(lead) + tuple(shape), dtype=dtype,
-                                   device=device), requires_grad=False)
+              lead: Sequence[int] = (), *,
+               axes: Optional[Axes] = None) -> nn.Parameter:
+    return _leaf(torch.ones(tuple(lead) + tuple(shape), dtype=dtype,
+                            device=device), axes, lead)
 
 
 def zeros_init(shape: Sequence[int], dtype, device,
-               lead: Sequence[int] = ()) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(tuple(lead) + tuple(shape), dtype=dtype,
-                                    device=device), requires_grad=False)
+               lead: Sequence[int] = (), *,
+               axes: Optional[Axes] = None) -> nn.Parameter:
+    return _leaf(torch.zeros(tuple(lead) + tuple(shape), dtype=dtype,
+                             device=device), axes, lead)
 
 
 # ----------------------------------------------------------------------
@@ -113,11 +188,14 @@ class MLP(ParamTree):
     def __init__(self, d_model: int, d_ff: int, act: str, *, dtype, device,
                  gen=None, lead: Sequence[int] = ()):
         super().__init__()
-        self.wi = dense_init(gen, (d_model, d_ff), dtype, device, lead=lead)
+        kw = dict(dtype=dtype, device=device, lead=lead)
+        self.wi = dense_init(gen, (d_model, d_ff), axes=("embed", "mlp"),
+                             **kw)
         if act in ("swiglu", "geglu"):
-            self.wg = dense_init(gen, (d_model, d_ff), dtype, device,
-                                 lead=lead)
-        self.wo = dense_init(gen, (d_ff, d_model), dtype, device, lead=lead)
+            self.wg = dense_init(gen, (d_model, d_ff), axes=("embed", "mlp"),
+                                 **kw)
+        self.wo = dense_init(gen, (d_ff, d_model), axes=("mlp", "embed"),
+                             **kw)
 
 
 def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -132,6 +210,7 @@ def mlp_apply(p, x: torch.Tensor, act: str) -> torch.Tensor:
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
+    h = constrain(h, ("dp", None, "tp"))
     return torch.einsum("...f,fd->...d", h, p["wo"])
 
 
@@ -142,9 +221,12 @@ class Embedding(ParamTree):
     def __init__(self, vocab: int, d_model: int, tie: bool, *, dtype, device,
                  gen=None):
         super().__init__()
-        self.tok = dense_init(gen, (vocab, d_model), dtype, device, scale=1.0)
+        # table: rows FSDP-sharded, d over the model axis
+        self.tok = dense_init(gen, (vocab, d_model), dtype, device, scale=1.0,
+                              axes=("vocab_gather", "embed_tp"))
         if not tie:
-            self.head = dense_init(gen, (d_model, vocab), dtype, device)
+            self.head = dense_init(gen, (d_model, vocab), dtype, device,
+                                   axes=("embed", "vocab"))
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
@@ -153,7 +235,10 @@ def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
     if tie:
-        return torch.einsum("...d,vd->...v", x, p["tok"])
+        # the table resharded (vocab to the model axis, d replicated)
+        # instead of the logits
+        w = constrain(p["tok"], ("vocab", None))
+        return torch.einsum("...d,vd->...v", x, w)
     return torch.einsum("...d,dv->...v", x, p["head"])
 
 
@@ -162,8 +247,10 @@ def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
 # ----------------------------------------------------------------------
 def _lse_and_gold(logits: torch.Tensor, labels: torch.Tensor):
     """fp32 logsumexp over the vocab and the logit of each label (labels
-    < 0 pick class 0; the caller masks them)."""
-    logits = logits.float()
+    < 0 pick class 0; the caller masks them).  Under a mesh the vocab is
+    gathered first: DTensor's masked gather of vocab-sharded logits fails
+    when its partial result is reduced."""
+    logits = constrain(logits, ("dp", None, None)).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.clamp_min(0).long()[..., None])[..., 0]

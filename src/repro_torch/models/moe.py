@@ -12,9 +12,18 @@ Two implementations, as in the reference:
 * ``dense``: every expert on every token, combined by the router's
   weights; what reduced configs serve and the plain oracle of the tests.
 
-``a2a`` runs ``moe_apply_scatter``: the port has no mesh, and the
-reference's ``moe_apply_a2a`` itself falls back to the scatter path
-without one.
+* ``a2a`` (``moe_apply_a2a``): expert parallelism with explicit
+  all-to-alls over the mesh's ``"model"`` process group, the reference's
+  ``shard_map`` block on each rank's local tensors; without a mesh, a
+  ``"model"`` extent above 1 or experts it divides, the scatter path.
+
+Under a mesh (``launch.sharding``) the scatter and dense paths run on
+replicated activations: the routing's ``sort``, ``searchsorted`` and
+``index_put`` have no DTensor sharding rule, so the tokens and the expert
+weights are gathered whole on every rank (autograd carries the
+gathers), the block runs on plain tensors and its output is a replicated
+DTensor.  The reference's ``.at[].add`` dispatch is an ``index_put`` of
+distinct slots here, as in the meshless path.
 
 Router: fp32 logits and softmax, top-k weights normalised to sum 1 (with
 a 1e-9 floor), and the Switch load-balance auxiliary loss from the top-1
@@ -35,7 +44,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamTree, dense_init
+from ..device import is_dtensor
+from .layers import ParamTree, active_rules, constrain, dense_init
 
 GATED = ("swiglu", "geglu")
 
@@ -53,17 +63,24 @@ class MoE(ParamTree):
         super().__init__()
         kw = dict(dtype=dtype, device=device, lead=lead)
         gated = act in GATED
-        self.router = dense_init(gen, (d_model, n_experts), **kw)
-        self.wi = dense_init(gen, (n_experts, d_model, d_ff), **kw)
+        self.router = dense_init(gen, (d_model, n_experts),
+                                 axes=("embed", None), **kw)
+        self.wi = dense_init(gen, (n_experts, d_model, d_ff),
+                             axes=("experts", "embed", None), **kw)
         if gated:
-            self.wg = dense_init(gen, (n_experts, d_model, d_ff), **kw)
-        self.wo = dense_init(gen, (n_experts, d_ff, d_model), **kw)
+            self.wg = dense_init(gen, (n_experts, d_model, d_ff),
+                                 axes=("experts", "embed", None), **kw)
+        self.wo = dense_init(gen, (n_experts, d_ff, d_model),
+                             axes=("experts", None, "embed"), **kw)
         if n_shared:
             f = n_shared * d_ff
-            self.shared_wi = dense_init(gen, (d_model, f), **kw)
+            self.shared_wi = dense_init(gen, (d_model, f),
+                                        axes=("embed", "mlp"), **kw)
             if gated:
-                self.shared_wg = dense_init(gen, (d_model, f), **kw)
-            self.shared_wo = dense_init(gen, (f, d_model), **kw)
+                self.shared_wg = dense_init(gen, (d_model, f),
+                                            axes=("embed", "mlp"), **kw)
+            self.shared_wo = dense_init(gen, (f, d_model),
+                                        axes=("mlp", "embed"), **kw)
 
 
 def _gate(g: torch.Tensor, act: str) -> torch.Tensor:
@@ -122,6 +139,34 @@ def dispatch_slots(experts: torch.Tensor, capacity: int):
     return expert_flat, slot, keep
 
 
+def _dispatch(x2d: torch.Tensor, weights: torch.Tensor,
+              experts: torch.Tensor, capacity: int, n_experts: int):
+    """Each kept routed row of ``x2d`` (T, d) into its own (expert, slot)
+    of an (E, C + 1, d) buffer; the dropped rows are zeros, all bound for
+    row C, which the experts never read.  Returns the buffer, each row's
+    flat slot and its router weight (0 for a dropped row)."""
+    t, d = x2d.shape
+    srows = weights.numel()
+    w_flat = weights.reshape(srows).to(x2d.dtype)
+    expert_flat, slot, keep = dispatch_slots(experts, capacity)
+    rows = x2d.unsqueeze(1).expand(t, srows // t, d).reshape(srows, d)
+    rows = torch.where(keep[:, None], rows, torch.zeros(
+        (), dtype=x2d.dtype, device=x2d.device))
+    flat = expert_flat * (capacity + 1) + slot
+    buf = x2d.new_zeros((n_experts * (capacity + 1), d)).index_put(
+        (flat,), rows).reshape(n_experts, capacity + 1, d)
+    return buf, flat, w_flat * keep
+
+
+def _combine(out_e: torch.Tensor, flat: torch.Tensor, w_kept: torch.Tensor,
+             top_k: int) -> torch.Tensor:
+    """Each token's rows of the (E, C + 1, d) expert outputs, weighted and
+    summed: (T, d)."""
+    d = out_e.shape[-1]
+    gathered = out_e.reshape(-1, d).index_select(0, flat) * w_kept[:, None]
+    return gathered.reshape(-1, top_k, d).sum(1)
+
+
 def moe_apply_scatter(p, x: torch.Tensor, *, top_k: int, n_experts: int,
                       capacity_factor: float, act: str
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -130,29 +175,15 @@ def moe_apply_scatter(p, x: torch.Tensor, *, top_k: int, n_experts: int,
     t = b * s
     x2d = x.reshape(t, d)
     weights, experts, aux = _router(p, x2d, top_k)
-
-    srows = t * top_k
-    w_flat = weights.reshape(srows).to(x.dtype)
     capacity = capacity_of(t, top_k, n_experts, capacity_factor)
-    expert_flat, slot, keep = dispatch_slots(experts, capacity)
-
-    # dispatch: each kept row into its own (expert, slot) of an
-    # (E, C + 1, d) buffer; the dropped rows are zeros, all bound for row
-    # C, which the experts never read
-    rows = x2d.unsqueeze(1).expand(t, top_k, d).reshape(srows, d)
-    rows = torch.where(keep[:, None], rows, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
-    flat = expert_flat * (capacity + 1) + slot
-    buf = x.new_zeros((n_experts * (capacity + 1), d)).index_put(
-        (flat,), rows).reshape(n_experts, capacity + 1, d)
+    buf, flat, w_kept = _dispatch(x2d, weights, experts, capacity,
+                                  n_experts)
+    buf = constrain(buf, ("ep", "cap", None))
 
     out_e = _expert_ffn(p, buf[:, :capacity], act)
     out_e = F.pad(out_e, (0, 0, 0, 1))
-
-    # combine
-    gathered = out_e.reshape(n_experts * (capacity + 1), d).index_select(
-        0, flat) * (w_flat * keep)[:, None]
-    y = gathered.reshape(t, top_k, d).sum(1)
+    out_e = constrain(out_e, ("ep", "cap", None))
+    y = _combine(out_e, flat, w_kept, top_k)
 
     if "shared_wi" in p:
         y = y + _shared_ffn(p, x2d, act)
@@ -190,11 +221,144 @@ def _shared_ffn(p, x2d: torch.Tensor, act: str) -> torch.Tensor:
     return torch.einsum("tf,fd->td", h, p["shared_wo"])
 
 
+def _replicated(t):
+    """A DTensor's whole value on every rank (a differentiable gather), as
+    a plain tensor; a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(placements=[Replicate()] * t.device_mesh.ndim
+                          ).to_local()
+
+
+def _on_replicated(fn, p, x, **kwargs):
+    """``fn(p, x)`` of a DTensor ``x`` on whole tensors: x and the MoE
+    leaves gathered, the block run on plain tensors, its output and aux
+    loss returned as replicated DTensors."""
+    if not is_dtensor(x):
+        return fn(p, x, **kwargs)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    whole = {k: _replicated(p[k]) for k in _LEAVES if k in p}
+    y, aux = fn(whole, _replicated(x), **kwargs)
+    rep = [Replicate()] * mesh.ndim
+    return (DTensor.from_local(y, mesh, rep, run_check=False),
+            DTensor.from_local(aux, mesh, rep, run_check=False))
+
+
+_LEAVES = ("router", "wi", "wg", "wo", "shared_wi", "shared_wg", "shared_wo")
+
+
+def moe_apply_a2a(p, x: torch.Tensor, *, top_k: int, n_experts: int,
+                  capacity_factor: float, act: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with explicit all-to-all dispatch (the
+    reference's ``shard_map`` block, on each rank's local tensors):
+
+        local top-k / rank / scatter into (E, cap, d) -> all_to_all over
+        "model" (E -> E/tp, cap -> tp·cap) -> expert weights gathered over
+        the data axes (FSDP) -> local expert GEMMs -> all_to_all back ->
+        local combine; aux averaged over every mesh axis.
+
+    x is sharded over the data axes on the batch and over ``"model"`` on
+    the sequence where they divide them; each shard's capacity is the
+    reference's static local one, rounded up to a multiple of 8.  The
+    collectives carry gradients (the autograd-aware functional all-to-all
+    and DTensor redistributions).  Falls back to ``moe_apply_scatter`` where
+    the reference does: no mesh, no ``"model"`` axis, an extent of 1, or
+    experts it does not divide."""
+    rules = active_rules()
+    mesh = getattr(rules, "mesh", None)
+    names = tuple(mesh.mesh_dim_names) if mesh is not None else ()
+    if mesh is None or "model" not in names \
+            or rules.size("model") == 1 or n_experts % rules.size("model"):
+        return _on_replicated(moe_apply_scatter, p, x, top_k=top_k,
+                              n_experts=n_experts,
+                              capacity_factor=capacity_factor, act=act)
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    tp = rules.size("model")
+    mdim = names.index("model")
+    dp_dims = [i for i, a in enumerate(names) if a != "model"]
+    n_dp = 1
+    for i in dp_dims:
+        n_dp *= mesh.size(i)
+    group = mesh.get_group("model")
+
+    b, s, d = x.shape
+    # static local token count per (dp, tp) shard (seq over model)
+    b_loc = b // n_dp if b % n_dp == 0 else b
+    s_loc = s // tp if s % tp == 0 else s
+    t_loc = b_loc * s_loc
+    cap = int(max(1, round(t_loc * top_k / n_experts * capacity_factor)))
+    cap = -(-cap // 8) * 8
+    gated = act in GATED
+    e_loc = n_experts // tp
+
+    rep = [Replicate()] * mesh.ndim
+    x_pl = list(rep)
+    if b % n_dp == 0:
+        for i in dp_dims:
+            x_pl[i] = Shard(0)
+    if s % tp == 0:
+        x_pl[mdim] = Shard(1)
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    x_l = x.redistribute(mesh, x_pl).to_local()
+    # each rank's weight gradients cover its own tokens: partial sums
+    # over every axis the tokens are spread on
+    router = p["router"]
+    if is_dtensor(router):
+        router = router.redistribute(mesh, rep).to_local(
+            grad_placements=[Partial()] * mesh.ndim)
+
+    def experts_local(w):
+        # FSDP-stored weights: experts over "model", gathered over the data
+        # axes here, per layer
+        if not is_dtensor(w):
+            return w.chunk(tp, 0)[mesh.get_local_rank(mdim)]
+        pl = list(rep)
+        pl[mdim] = Shard(0)
+        grad_pl = [Partial()] * mesh.ndim
+        grad_pl[mdim] = Shard(0)
+        return w.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    wi = experts_local(p["wi"])
+    wg = experts_local(p["wg"]) if gated else None
+    wo = experts_local(p["wo"])
+
+    x2d = x_l.reshape(-1, d)
+    weights, experts, aux = _router({"router": router}, x2d, top_k)
+    buf, flat, w_kept = _dispatch(x2d, weights, experts, cap, n_experts)
+
+    # dispatch: experts to their shard, capacities concatenated by source
+    recv = all_to_all_single_autograd(buf[:, :cap].contiguous(), None, None,
+                                      group)
+    h_in = recv.reshape(tp, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, tp * cap, d)
+    out = _expert_ffn({"wi": wi, "wg": wg, "wo": wo}, h_in, act)
+    send = out.reshape(e_loc, tp, cap, d).transpose(0, 1).contiguous()
+    back = all_to_all_single_autograd(send, None, None, group)
+    out_e = F.pad(back.reshape(n_experts, cap, d), (0, 0, 0, 1))
+    y = _combine(out_e, flat, w_kept, top_k).reshape(x_l.shape)
+
+    y = DTensor.from_local(y, mesh, x_pl, run_check=False)
+    aux = DTensor.from_local(aux, mesh, [Partial("avg")] * mesh.ndim,
+                             run_check=False).redistribute(mesh, rep)
+    if "shared_wi" in p:
+        y = y + _shared_ffn(p, x.reshape(b * s, d), act).reshape(x.shape)
+    return y, aux
+
+
 def moe_apply(p, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch on ``cfg.moe_impl``: ``dense``, else the scatter path
-    (``a2a`` included: no mesh, as the reference without one)."""
+    """Dispatch on ``cfg.moe_impl``: ``dense``, ``a2a``, else the scatter
+    path; under a mesh, dense and scatter on replicated activations."""
     kwargs = dict(top_k=cfg.top_k, n_experts=cfg.n_experts, act=cfg.mlp_act)
     if cfg.moe_impl == "dense":
-        return moe_apply_dense(p, x, **kwargs)
-    return moe_apply_scatter(p, x, capacity_factor=cfg.capacity_factor,
+        return _on_replicated(moe_apply_dense, p, x, **kwargs)
+    if cfg.moe_impl == "a2a":
+        return moe_apply_a2a(p, x, capacity_factor=cfg.capacity_factor,
                              **kwargs)
+    return _on_replicated(moe_apply_scatter, p, x,
+                          capacity_factor=cfg.capacity_factor, **kwargs)

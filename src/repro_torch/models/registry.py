@@ -2,6 +2,7 @@
 
     api = get_model(cfg, device)
     params = api.init(generator)      # a TransformerLM or WhisperModel
+    axes = api.param_axes()           # logical axes, params' structure
     loss = api.loss(params, batch)
     logits, aux = api.forward(params, batch)
     cache = api.init_cache(batch, max_len)
@@ -65,6 +66,12 @@ class ModelAPI:
     forward: Callable
     input_specs: Callable
     decode_input_specs: Callable
+
+    def param_axes(self) -> Dict:
+        """The logical axes of every parameter, as a nested dict with the
+        parameter tree's paths (the reference's axes tree from
+        ``api.init``), read off a ``meta`` shell."""
+        return self.shell().param_axes()
 
 
 def _lm_api(cfg: ModelConfig, device: torch.device) -> ModelAPI:

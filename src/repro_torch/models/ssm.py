@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ref import _segsum, cumsum64
 from ..kernels.ssd_scan import ssd_intra_chunk_fwd
-from .layers import ParamTree, dense_init, ones_init, rmsnorm, zeros_init
+from .layers import (ParamTree, constrain, dense_init, ones_init, rmsnorm,
+                     zeros_init)
 
 
 def mamba_dims(cfg) -> Dict[str, int]:
@@ -53,22 +54,29 @@ class Mamba2(ParamTree):
         d, dinner, h, n, w = (cfg.d_model, dm["dinner"], dm["nheads"],
                               dm["nstate"], dm["conv_w"])
         kw = dict(dtype=dtype, device=device, lead=lead)
-        self.wz = dense_init(gen, (d, dinner), **kw)
-        self.wx = dense_init(gen, (d, dinner), **kw)
-        self.wb = dense_init(gen, (d, n), **kw)
-        self.wc = dense_init(gen, (d, n), **kw)
-        self.wdt = dense_init(gen, (d, h), **kw)
-        self.conv_wx = dense_init(gen, (w, dinner), scale=0.5, **kw)
-        self.conv_bx = zeros_init((dinner,), **kw)
-        self.conv_wb = dense_init(gen, (w, n), scale=0.5, **kw)
-        self.conv_bb = zeros_init((n,), **kw)
-        self.conv_wc = dense_init(gen, (w, n), scale=0.5, **kw)
-        self.conv_bc = zeros_init((n,), **kw)
-        self.a_log = zeros_init((h,), **kw)
-        self.d_skip = ones_init((h,), **kw)
-        self.dt_bias = zeros_init((h,), **kw)
-        self.norm_scale = ones_init((dinner,), **kw)
-        self.out_proj = dense_init(gen, (dinner, d), **kw)
+        self.wz = dense_init(gen, (d, dinner), axes=("embed", "ssm_inner"),
+                             **kw)
+        self.wx = dense_init(gen, (d, dinner), axes=("embed", "ssm_inner"),
+                             **kw)
+        self.wb = dense_init(gen, (d, n), axes=("embed", None), **kw)
+        self.wc = dense_init(gen, (d, n), axes=("embed", None), **kw)
+        self.wdt = dense_init(gen, (d, h), axes=("embed", "ssm_heads"),
+                              **kw)
+        self.conv_wx = dense_init(gen, (w, dinner), scale=0.5,
+                                  axes=(None, "ssm_inner"), **kw)
+        self.conv_bx = zeros_init((dinner,), axes=("ssm_inner",), **kw)
+        self.conv_wb = dense_init(gen, (w, n), scale=0.5, axes=(None, None),
+                                  **kw)
+        self.conv_bb = zeros_init((n,), axes=(None,), **kw)
+        self.conv_wc = dense_init(gen, (w, n), scale=0.5, axes=(None, None),
+                                  **kw)
+        self.conv_bc = zeros_init((n,), axes=(None,), **kw)
+        self.a_log = zeros_init((h,), axes=("ssm_heads",), **kw)
+        self.d_skip = ones_init((h,), axes=("ssm_heads",), **kw)
+        self.dt_bias = zeros_init((h,), axes=("ssm_heads",), **kw)
+        self.norm_scale = ones_init((dinner,), axes=("ssm_inner",), **kw)
+        self.out_proj = dense_init(gen, (dinner, d),
+                                   axes=("ssm_inner", "embed"), **kw)
 
 
 def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -198,6 +206,7 @@ def mamba2_block(p, x: torch.Tensor, cfg) -> torch.Tensor:
     z, xc, bb, cc, dt, _ = _project(p, x, cfg)
     h, pd = dm["nheads"], dm["headdim"]
     xh = xc.reshape(*xc.shape[:-1], h, pd)
+    xh = constrain(xh, ("dp", None, "tp", None))
     a = -torch.exp(p["a_log"].float())
     y, _ = ssd_chunked(xh, dt, a, bb.float(), cc.float(), cfg.ssm_chunk,
                        use_kernel=cfg.use_flash_kernel)

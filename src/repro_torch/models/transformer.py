@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_block, decode_attention_block,
                         init_kv_cache)
-from .layers import (MLP, Embedding, ParamTree, embed_tokens,
+from .layers import (MLP, Embedding, ParamTree, constrain, embed_tokens,
                      fused_unembed_cross_entropy, mlp_apply, ones_init,
                      rmsnorm, softmax_cross_entropy, unembed)
 from .moe import MoE, moe_apply
@@ -39,14 +39,14 @@ class DecoderLayer(ParamTree):
                  lead: Sequence[int] = (), d_ff: Optional[int] = None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, lead=lead)
-        self.ln1 = ones_init((cfg.d_model,), **kw)
+        self.ln1 = ones_init((cfg.d_model,), axes=("embed",), **kw)
         if spec.mixer == "attn":
             self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.head_dim, cfg.qkv_bias, gen=gen, **kw)
         else:
             self.mamba = Mamba2(cfg, gen=gen, **kw)
         if spec.ffn != "none":
-            self.ln2 = ones_init((cfg.d_model,), **kw)
+            self.ln2 = ones_init((cfg.d_model,), axes=("embed",), **kw)
             if spec.ffn == "moe":
                 self.moe = MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff,
                                cfg.mlp_act, cfg.n_shared_experts, gen=gen,
@@ -90,7 +90,8 @@ class TransformerLM(ParamTree):
                 spec, cfg, dtype=dtype, device=device, gen=gen,
                 d_ff=cfg.prefix_d_ff or cfg.d_ff))
         self.blocks = Blocks(cfg, dtype=dtype, device=device, gen=gen)
-        self.final_norm = ones_init((cfg.d_model,), dtype, device)
+        self.final_norm = ones_init((cfg.d_model,), dtype, device,
+                                    axes=("embed",))
 
 
 def init_model(cfg, generator: torch.Generator, device) -> TransformerLM:
@@ -106,6 +107,7 @@ def _apply_layer(p, spec, x, positions, cfg, aux):
         x = x + attention_block(p["attn"], h, positions, cfg=cfg)
     else:
         x = x + mamba2_block(p["mamba"], h, cfg)
+    x = constrain(x, ("dp", "seq", None))
     if spec.ffn != "none":
         h = rmsnorm(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
@@ -114,6 +116,7 @@ def _apply_layer(p, spec, x, positions, cfg, aux):
         else:
             ff = mlp_apply(p["mlp"], h, cfg.mlp_act)
         x = x + ff
+        x = constrain(x, ("dp", "seq", None))
     return x, aux
 
 
@@ -137,6 +140,7 @@ def _backbone(params: TransformerLM, tokens: torch.Tensor, cfg, *,
     b, seq = x.shape[:2]
     positions = torch.arange(seq, dtype=torch.int32,
                              device=x.device).expand(b, seq)
+    x = constrain(x, ("dp", "seq", None))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.prefix):
         x, aux = _apply_layer(params[f"prefix{i}"], spec, x, positions, cfg,
@@ -165,7 +169,8 @@ def forward(params: TransformerLM, tokens: torch.Tensor, cfg, *,
     embeddings prepended.  Returns (logits (B,S,V), aux_loss)."""
     x, aux = _backbone(params, tokens, cfg, extra_embeds=extra_embeds,
                        remat_policy=remat_policy)
-    return unembed(params["embed"], x, cfg.tie_embeddings), aux
+    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    return constrain(logits, ("dp", None, "tp")), aux
 
 
 def loss_fn(params: TransformerLM, batch: Dict[str, torch.Tensor], cfg,

@@ -20,8 +20,9 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_block, cross_attention_block,
                         decode_attention_block, init_kv_cache)
-from .layers import (MLP, Embedding, ParamTree, embed_tokens, mlp_apply,
-                     ones_init, rmsnorm, softmax_cross_entropy, unembed)
+from .layers import (MLP, Embedding, ParamTree, constrain, embed_tokens,
+                     mlp_apply, ones_init, rmsnorm, softmax_cross_entropy,
+                     unembed)
 
 
 # ----------------------------------------------------------------------
@@ -35,10 +36,10 @@ class EncoderLayer(ParamTree):
                  lead: Sequence[int] = ()):
         super().__init__()
         kw = dict(dtype=dtype, device=device, lead=lead)
-        self.ln1 = ones_init((cfg.d_model,), **kw)
+        self.ln1 = ones_init((cfg.d_model,), axes=("embed",), **kw)
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim, cfg.qkv_bias, gen=gen, **kw)
-        self.ln2 = ones_init((cfg.d_model,), **kw)
+        self.ln2 = ones_init((cfg.d_model,), axes=("embed",), **kw)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, gen=gen, **kw)
 
 
@@ -51,7 +52,7 @@ class DecoderLayer(EncoderLayer):
                  lead: Sequence[int] = ()):
         super().__init__(cfg, dtype=dtype, device=device, gen=gen, lead=lead)
         kw = dict(dtype=dtype, device=device, lead=lead)
-        self.ln_x = ones_init((cfg.d_model,), **kw)
+        self.ln_x = ones_init((cfg.d_model,), axes=("embed",), **kw)
         self.xattn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, cfg.qkv_bias, gen=gen, **kw)
 
@@ -75,8 +76,10 @@ class WhisperModel(ParamTree):
                                        gen=gen, lead=(cfg.n_enc_layers,))
         self.dec_blocks = DecoderLayer(cfg, dtype=dtype, device=device,
                                        gen=gen, lead=(cfg.n_layers,))
-        self.enc_norm = ones_init((cfg.d_model,), dtype, device)
-        self.final_norm = ones_init((cfg.d_model,), dtype, device)
+        self.enc_norm = ones_init((cfg.d_model,), dtype, device,
+                                  axes=("embed",))
+        self.final_norm = ones_init((cfg.d_model,), dtype, device,
+                                    axes=("embed",))
 
 
 def init_whisper(cfg, generator: torch.Generator, device) -> WhisperModel:
@@ -114,7 +117,8 @@ def encoder_layer(p, x: torch.Tensor, positions: torch.Tensor, cfg
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attention_block(p["attn"], h, positions, cfg=cfg, causal=False)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+    return constrain(x + mlp_apply(p["mlp"], h, cfg.mlp_act),
+                     ("dp", None, None))
 
 
 def decoder_layer(p, x: torch.Tensor, enc_out: torch.Tensor,
@@ -127,7 +131,8 @@ def decoder_layer(p, x: torch.Tensor, enc_out: torch.Tensor,
     h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
     x = x + cross_attention_block(p["xattn"], h, enc_out, cfg=cfg)
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp_act)
+    return constrain(x + mlp_apply(p["mlp"], h, cfg.mlp_act),
+                     ("dp", None, None))
 
 
 def encode(params: WhisperModel, audio_feats: torch.Tensor, cfg

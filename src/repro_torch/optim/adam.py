@@ -26,6 +26,8 @@ from typing import Any, Mapping, NamedTuple, Optional, Tuple
 import torch
 import torch.utils._pytree as pytree
 
+from ..device import is_dtensor
+
 Tree = Mapping[str, torch.Tensor]
 
 
@@ -43,6 +45,9 @@ def adamw_init(params: Any, *, use_master: bool = False,
     device = leaves[0].device if leaves else None
 
     def zeros(p):
+        if is_dtensor(p):
+            # zeros with its mesh and placements
+            return torch.zeros_like(p.detach(), dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     mu = pytree.tree_map(zeros, params)
@@ -153,11 +158,23 @@ def adamw_step(params: Any, grads: Any, state: AdamState, *,
         nu=pytree.tree_unflatten(new_v, spec), master=master, ef=state.ef)
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of ``x``; of a DTensor, its replicated value as a
+    plain tensor (the partial sums reduced), so that every rank holds the
+    same number."""
+    s = torch.sum(torch.square(x.float()))
+    if not is_dtensor(x):
+        return s
+    from torch.distributed.tensor import Replicate
+    return s.redistribute(placements=[Replicate()] * s.device_mesh.ndim
+                          ).to_local()
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     leaves = pytree.tree_leaves(tree)
     if not leaves:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    return torch.sqrt(sum(_square_sum(x) for x in leaves))
 
 
 @torch.no_grad()

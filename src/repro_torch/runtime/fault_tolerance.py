@@ -15,6 +15,8 @@ The port's step updates its state in place, so a restore copies the
 checkpoint into the tensors the step holds (``CheckpointManager.restore``
 with the live state as template); a failure inside a step with no
 checkpoint to go back to resumes from the state as the failure left it.
+On a mesh of several ranks every rank resumes from the step the mesh's
+first rank saw committed (``latest_step`` with the state as template).
 A step's end is a synchronisation of its metrics' device; a failure is a
 ``RuntimeError`` (which covers ``torch.cuda.OutOfMemoryError``).  After a
 restore the data resumes at the restored step: ``data_iter.seek`` (a
@@ -86,7 +88,7 @@ def resilient_train_loop(step_fn: Callable, state: Any, data_iter,
             data_stream.load_state_dict(data_state)
 
     start = 0
-    latest = mgr.latest_step()
+    latest = mgr.latest_step(state)
     if latest is not None:
         state, meta = mgr.restore(latest, template=state)
         start = int(meta["step"]) + 1
@@ -126,7 +128,7 @@ def resilient_train_loop(step_fn: Callable, state: Any, data_iter,
             if restarts > ft.max_restarts:
                 raise
             mgr.wait()
-            latest = mgr.latest_step()
+            latest = mgr.latest_step(state)
             if latest is not None:
                 state, meta = mgr.restore(latest, template=state)
                 step = int(meta["step"]) + 1

@@ -131,13 +131,17 @@ class ServingEngine:
 
     def __init__(self, arch: str = "tinyllama-1.1b", *, reduced: bool = True,
                  max_sequences: int = 4, max_len: int = 64, seed: int = 0,
-                 device=None):
+                 device=None, n_layers: Optional[int] = None):
+        """``n_layers`` cuts the model's depth to that many layers (the
+        width stays the config's); None keeps the config's depth."""
         self.device = resolve_device(device)
         cfg = get_config(arch)
         if reduced:
             cfg = cfg.reduced()
             if cfg.n_experts:
                 cfg.moe_impl = "dense"
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=int(n_layers))
         if cfg.enc_dec:
             raise ValueError(
                 "ServingEngine serves decoder-only LMs; encoder-decoder "

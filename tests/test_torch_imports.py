@@ -18,8 +18,9 @@ from repro_torch.models.registry import get_model
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # the TENSILE loop's, the SSM slice's, the multi-job runtime's, the
 # experience plane's, the training launcher's, the MoE slice's, the
-# whisper slice's and the service and observability planes' modules:
-# each must be among those walked and checked
+# whisper slice's, the service and observability planes' and the
+# distribution slice's modules: each must be among those walked and
+# checked
 TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "core.access", "core.plan", "core.telemetry", "core.peak_analysis",
     "core.pass_state", "core.engine", "core.swap_planner",
@@ -32,7 +33,8 @@ TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "data.pipeline", "checkpoint.manager", "runtime.stragglers",
     "runtime.fault_tolerance", "launch.train", "models.moe",
     "models.whisper", "obs.trace", "service.store", "service.daemon",
-    "service.client", "launch.serve")]
+    "service.client", "launch.serve", "launch.mesh", "launch.sharding",
+    "runtime.elastic")]
 PORT_TOOLS = ["experience_torch", "tensile_svc_torch", "tensile_trace_torch"]
 
 

@@ -15,6 +15,7 @@ outputs.
 """
 import dataclasses
 import enum
+import importlib.util
 import os
 import runpy
 import sys
@@ -716,7 +717,29 @@ def test_wire_forms_reject_like_the_reference():
             {"job_id": "j", "schema": 1, "unknown": 1}).job_id == "j"
 
 
+def _reference_registry_as_built(monkeypatch):
+    """The reference's workload registry reduced to the entries its module
+    registers itself (read off a fresh copy of the module), for this
+    test: ``tests/test_service.py`` registers a name for good, and a
+    worker that ran it first would see that name too."""
+    spec = importlib.util.find_spec(ref_workloads.__name__)
+    fresh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fresh)
+    monkeypatch.setattr(ref_workloads, "_REGISTRY", {
+        k: ref_workloads._REGISTRY[k] for k in fresh._REGISTRY})
+
+
+def test_resolve_workload_after_a_reference_registration(monkeypatch):
+    """A name registered in the reference's registry before (as
+    ``tests/test_service.py`` registers ``"svc-test"``) does not fail
+    ``test_resolve_workload_like_the_reference``."""
+    monkeypatch.setitem(ref_workloads._REGISTRY, "svc-test", make_mlp)
+    assert "svc-test" in ref_workloads.registered_workloads()
+    test_resolve_workload_like_the_reference(monkeypatch)
+
+
 def test_resolve_workload_like_the_reference(monkeypatch):
+    _reference_registry_as_built(monkeypatch)
     assert workloads.registered_workloads() == \
         ref_workloads.registered_workloads() == ("mlp",)
     port = workloads.resolve_workload(JobSpec(

@@ -223,11 +223,18 @@ def test_plan_round_trips_through_dict(mlp):
     assert fp_plan(again) == fp_plan(plan)
 
 
+def test_profile_fields_are_the_references():
+    """The port's profile has the reference's fields, ``ici_bw`` among
+    them, and no other."""
+    assert {f.name for f in dataclasses.fields(tc.MachineProfile)} == {
+        f.name for f in dataclasses.fields(rc.MachineProfile)}
+
+
 def test_h100_profile_defaults():
     """The port's defaults describe one H100 SXM; the reference's a TPU."""
     p = tc.MachineProfile()
     assert p.device_memory_bytes == 80 * 10 ** 9
     assert (p.compute_flops, p.mem_bw) == (989e12, 3.35e12)
-    assert not hasattr(p, "ici_bw")
+    assert p.ici_bw == 25e9                 # NVLink 4 per link and direction
     assert p.transfer_time(1 << 20, compressed=True) < p.transfer_time(
         1 << 20)

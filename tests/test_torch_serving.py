@@ -146,6 +146,27 @@ def test_swapped_run_is_bit_identical_to_the_unswapped_run(engines, trace6):
         assert out == golden
 
 
+def test_depth_cut_keeps_the_width_and_serves(engines, trace6):
+    """``n_layers`` sets the depth only: two layers of the reduced config's
+    width (one layer), a cache of two layers, and a budgeted run (at the
+    engine's own bytes per token) that reproduces its unbudgeted tokens."""
+    _, one = engines
+    two = ServingEngine(max_sequences=4, max_len=MAX_LEN, seed=0,
+                        device="cpu", n_layers=2)
+    assert (one.cfg.n_layers, two.cfg.n_layers) == (1, 2)
+    assert two.cfg.d_model == one.cfg.d_model
+    assert two.bytes_per_token == 2 * one.bytes_per_token
+    assert all(t.shape[0] == 2 for t in
+               serving_engine.tree_leaves(two.cache))
+    _, golden = two.serve(trace6, budget_bytes=None, schedule=False)
+    assert len(golden) == 6 and all(len(t) == GEN for t in golden.values())
+    budget = two.bytes_per_token * (MAX_LEN * 2 + 2)
+    rep, out = two.serve(trace6, budget_bytes=budget, engine=_mem(
+        True, budget), batch_transfers=True)
+    assert rep.oom_events == 0 and rep.evictions > 0
+    assert out == golden
+
+
 def test_batched_run_takes_the_cpu_gather_scatter_path(engines, trace6,
                                                        monkeypatch):
     _, teng = engines
