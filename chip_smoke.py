@@ -223,6 +223,21 @@ Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
    bit-identical; and ``launch.train.main --full --mesh 1,1`` for 3
    steps.  The wall ms of the prefill and the train step, meshless and
    under the mesh, are printed.
+11. The dry run (``dryrun_cells`` and ``dryrun_card``): in a fresh
+   process beside the distribution phase's, ``launch.dryrun.run_cell`` on
+   rank 0 of a 512-rank ``fake`` world on the 16 x 16 mesh for
+   TinyLlama-1.1B's ``train_4k``, ``prefill_32k`` and ``decode_32k``,
+   Moonlight's ``decode_32k`` and Mamba-2's ``long_500k`` (each record's
+   peak, FLOPs, dominant term and collective mix printed); then, in the
+   distribution phase's process after its gates, full-width
+   TinyLlama-1.1B's train step (B 4 x S 1024, block remat), prefill (B 4
+   x S 2048) and four decode steps (B 4, a 2048-position cache) on the
+   config's default path (plain attention), meshless and under the (1, 1)
+   host mesh, each accounted on ``meta`` shells and on the card's tensors.
+   Gates: equal FLOP counts on both, and meshless and under the mesh; the
+   ledger's predicted peak within 10 % of the allocator's; no collective
+   on the (1, 1) mesh.  Each step's CUDA-event time is printed beside the
+   roofline's compute and memory seconds.
 
 Every phase raises on failure.  Without a CUDA card the script exits 1
 and prints no result.  The last line of standard output is the JSON
@@ -1934,21 +1949,41 @@ def quant_device_ms(shape, dtype: str) -> dict:
     return out
 
 
+def start_fresh(phase: str, *args) -> subprocess.Popen:
+    """Start ``FRESH_PHASES[phase](*args)`` in a new process of this
+    script; ``finish_fresh`` collects it."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--fresh", phase, json.dumps(args)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_fresh(proc: subprocess.Popen, phase: str, timeout: int = 600):
+    """The result of a process from ``start_fresh``; its log lines are
+    printed here.  Raises if it failed or outlived ``timeout`` seconds
+    (it is killed then)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise AssertionError(f"{phase} timed out in a fresh process:\n"
+                             + out + err)
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase} failed in a fresh process:\n"
+                             + out + err)
+    *lines, result = out.strip().splitlines()
+    for line in lines:
+        log(line)
+    return json.loads(result)
+
+
 def in_fresh_process(phase: str, *args, timeout: int = 600):
     """Run ``FRESH_PHASES[phase](*args)`` in a new process of this script
     and return its result; the child's log lines are printed here.  Late in
     a run, profiler traces lose events (``device_ms``); a fresh process's
     do not."""
-    res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--fresh", phase, json.dumps(args)],
-                         capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
-        raise AssertionError(f"{phase} failed in a fresh process:\n"
-                             + res.stdout + res.stderr)
-    *lines, result = res.stdout.strip().splitlines()
-    for line in lines:
-        log(line)
-    return json.loads(result)
+    return finish_fresh(start_fresh(phase, *args), phase, timeout)
 
 
 def time_quant(shape, dtype, link: dict) -> dict:
@@ -5220,6 +5255,186 @@ def distribution(device: str = "cuda", cfg=None,
     return rec
 
 
+# ----------------------------------------------------------------------
+# the dry run
+# ----------------------------------------------------------------------
+DRYRUN_CELLS = [(ARCH, "train_4k"), (ARCH, "prefill_32k"),
+                (ARCH, "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k"),
+                (SSM_ARCH, "long_500k")]
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_DECODE_STEPS = 4
+DRYRUN_DECODE_LEN = 2048
+
+
+def dryrun_cells() -> list:
+    """``launch.dryrun.run_cell`` for DRYRUN_CELLS on the 16 x 16 mesh, as
+    rank 0 of a 512-rank ``fake`` world in this process (a fresh one: the
+    fake world cannot share a process with an NCCL world); each record's
+    peak, FLOPs, dominant term and collective mix.  Gates: finite,
+    positive FLOPs and a peak at least the arguments."""
+    from repro_torch.launch import dryrun
+    out = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, False)
+        r = rec["roofline"]
+        summary = {
+            "arch": arch, "shape": shape, "mesh": rec["mesh"],
+            "seconds": rec["compile_seconds"],
+            "per_device_peak_bytes": rec["per_device_peak_bytes"],
+            "per_device": rec["per_device"],
+            "fits_device_memory": rec["fits_device_memory"],
+            "flops": rec["cost"]["flops"],
+            "bytes_accessed": rec["cost"]["bytes_accessed"],
+            "model_flops": r["model_flops"],
+            "useful_flops_ratio": r["useful_flops_ratio"],
+            "dominant": r["dominant"],
+            "roofline_s": {k: r[k] for k in ("compute_s", "memory_s",
+                                             "collective_s")},
+            "collectives": {k: {"count": v["count"], "bytes": v["bytes"]}
+                            for k, v in rec["collectives"].items()}}
+        log("[dryrun] cell " + json.dumps(summary))
+        if not (math.isfinite(summary["flops"]) and summary["flops"] > 0):
+            raise AssertionError(f"{arch} x {shape}: FLOPs {summary['flops']}")
+        if rec["per_device_peak_bytes"] < rec["per_device"]["arguments"]:
+            raise AssertionError(f"{arch} x {shape}: a peak below the "
+                                 "arguments")
+        out.append(summary)
+    return out
+
+
+def _dryrun_steps(api, params, rules, meta: bool) -> dict:
+    """The accounting check's three steps on ``params`` (``meta`` shells
+    or the card's), each as ``(step, args)``: the smoke's train step
+    (TRAIN_B x TRAIN_S), the prefill (PREFILL_B x PREFILL_S) and
+    DRYRUN_DECODE_STEPS decode steps against a DRYRUN_DECODE_LEN cache.
+    Under ``rules`` the batches are placed first (the reference's
+    ``in_shardings``)."""
+    from repro_torch.launch.dryrun import place_batch
+
+    def placed(batch):
+        return batch if rules is None else place_batch(rules, batch)
+    train = ShapeSpec("smoke_train", TRAIN_S, TRAIN_B, "train")
+    pre = ShapeSpec("smoke_prefill", PREFILL_S, PREFILL_B, "prefill")
+    dec = ShapeSpec("smoke_decode", DRYRUN_DECODE_LEN, PREFILL_B, "decode")
+    opt = opt_state_for(params, abstract=meta)
+    cache = (api.abstract_cache if meta else api.init_cache)(
+        PREFILL_B, DRYRUN_DECODE_LEN)
+    batches = [api.decode_input_specs(dec, abstract=meta, seed=i)
+               for i in range(DRYRUN_DECODE_STEPS)]
+    serve = build_serve_step(api, rules=rules)
+
+    def decode(params, cache, batches):
+        for i, b in enumerate(batches):
+            logits, cache = serve(params, cache, b, i)
+        return logits, cache
+    return {
+        "train": (build_train_step(api, TrainStepConfig(), rules=rules),
+                  (params, opt, placed(api.input_specs(
+                      train, abstract=meta, seed=0)))),
+        "prefill": (build_prefill_step(api, rules=rules),
+                    (params, placed(api.input_specs(pre, abstract=meta,
+                                                    seed=0)))),
+        "decode": (decode, (params, cache, batches))}
+
+
+def dryrun_card(device: str = "cuda", cfg=None) -> dict:
+    """The dry run's accounting against the card: full-width
+    TinyLlama-1.1B's train step, prefill and decode steps (the config's
+    default path, plain attention, as on ``meta``), meshless and under the
+    (1, 1) host mesh of a world of one, each accounted on ``meta`` shells
+    and again on the card's tensors after a warm-up run.  Gates: the FLOP
+    counts equal on both, and equal meshless and under the mesh; the
+    ledger's predicted peak within DRYRUN_PEAK_TOL of the allocator's
+    (``max_memory_allocated`` over the step less ``memory_allocated``
+    before it, plus the arguments' bytes); no collective under the mesh.
+    Each step's time (CUDA events, 2 runs, without the accounting) is
+    printed beside the roofline's compute and memory seconds.  Runs in a
+    fresh process, after ``distribution`` (its world); ``device`` and
+    ``cfg`` rehearse it on the CPU (no allocator gate there)."""
+    from repro_torch.launch.dryrun import account
+    deterministic()
+    dev = device
+    cfg = cfg or get_config(ARCH)
+    api = get_model(cfg, dev)
+    init_world(dev)
+    mesh = make_host_mesh(device=dev)
+    rules = MeshRules(mesh, cfg=cfg)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    counters = (fa.flash_attention_fwd, ss.ssd_intra_chunk_fwd)
+    for k in counters:
+        k.launches = 0                   # the phase's path: counts from 0
+    rec: dict = {"card": card_line() if dev == "cuda" else "cpu",
+                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    failures = []
+    for mode, r in (("meshless", None), ("mesh", rules)):
+        shell = api.shell()
+        if r is not None:
+            shard_params(shell, r)
+        metas = _dryrun_steps(api, shell, r, meta=True)
+        params = api.init(torch.Generator(device=dev).manual_seed(0))
+        if r is not None:
+            shard_params(params, r)
+        cards = _dryrun_steps(api, params, r, meta=False)
+        for kind, (step, args) in metas.items():
+            _, acc_meta, meta_s = account(step, args)
+            cstep, cargs = cards[kind]
+            cstep(*cargs)                               # warm-up
+            if kind == "decode":
+                for t in pytree.tree_leaves(cargs[1]):
+                    t.zero_()
+            sync()
+            before = torch.cuda.memory_allocated() if dev == "cuda" else 0
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            out, acc, _ = account(cstep, cargs)
+            sync()
+            del out
+            measured = (torch.cuda.max_memory_allocated() - before
+                        + acc.arg_bytes) if dev == "cuda" else None
+            ms = events_ms(lambda: cstep(*cargs), 2) \
+                if dev == "cuda" else None
+            one = {
+                "flops_meta": acc_meta.flops, "flops_card": acc.flops,
+                "predicted_peak": acc_meta.peak_bytes,
+                "card_ledger_peak": acc.peak_bytes,
+                "allocator_peak": measured,
+                "arguments": acc_meta.arg_bytes,
+                "peak_rel_err": (acc_meta.peak_bytes - measured) / measured
+                if measured else None,
+                "collectives_meta": len(acc_meta.collectives),
+                "collectives_card": len(acc.collectives),
+                "meta_s": meta_s, "ms": ms,
+                "compute_s": acc_meta.flops / BF16_FLOPS_PER_S,
+                "memory_s": acc_meta.bytes_accessed / HBM_BYTES_PER_S}
+            rec[f"{mode}:{kind}"] = one
+            log(f"[dryrun] {mode} {kind}: " + json.dumps(one))
+            if acc_meta.flops != acc.flops:
+                failures.append(f"{mode} {kind}: FLOPs {acc_meta.flops} on "
+                                f"meta, {acc.flops} on the card")
+            if measured and abs(one["peak_rel_err"]) > DRYRUN_PEAK_TOL:
+                failures.append(f"{mode} {kind}: predicted peak "
+                                f"{acc_meta.peak_bytes} B, the allocator's "
+                                f"{measured} B")
+            if r is not None and (acc_meta.collectives or acc.collectives):
+                failures.append(f"{mode} {kind}: collectives on the (1, 1) "
+                                f"mesh: {acc_meta.collectives} "
+                                f"{acc.collectives}")
+        del cards, params, metas, shell
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    for kind in ("train", "prefill", "decode"):
+        if rec[f"mesh:{kind}"]["flops_meta"] != \
+                rec[f"meshless:{kind}"]["flops_meta"]:
+            failures.append(f"{kind}: the (1, 1) mesh counts other FLOPs "
+                            "than meshless")
+    rec["launches"] = {k.__name__: k.launches for k in counters}
+    log("[dryrun] launches on the path (plain attention by default): "
+        + json.dumps(rec["launches"]))
+    if failures:
+        raise AssertionError("dry-run accounting: " + "; ".join(failures))
+    return rec
+
+
 @contextlib.contextmanager
 def counting_swaps(counts: collections.Counter):
     """While active, count the executor's host copies (``out_``) and host
@@ -5467,11 +5682,23 @@ def main() -> int:
     wh = timed("whisper", lambda: in_fresh_process("whisper", link,
                                                    timeout=600))
 
-    # distribution, in a fresh process: a world of one, the host mesh and
-    # full-width TinyLlama under its rules, bit for bit against meshless
-    dist_rec = timed("distribution", lambda: in_fresh_process(
-        "distribution", timeout=600))
+    # the dry run's cells on a 512-rank fake world (host only), in a fresh
+    # process beside the next one; then distribution and the dry run's
+    # accounting against the card in one fresh process: a world of one,
+    # the host mesh and full-width TinyLlama under its rules, bit for bit
+    # against meshless, then each step accounted on meta and on the card
+    t0 = time.perf_counter()
+    cells_proc = start_fresh("dryrun_cells")
+    dist_rec, dry_card = timed("distribution_and_dryrun_card",
+                               lambda: in_fresh_process(
+                                   "phases", [["distribution", []],
+                                              ["dryrun_card", []]],
+                                   timeout=900))
     log("[distribution] " + json.dumps(dist_rec))
+    dry_cells = finish_fresh(cells_proc, "dryrun_cells", timeout=600)
+    log(f"[phase] dryrun (cells beside the card check) "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("[dryrun] " + json.dumps({"cells": dry_cells, "card": dry_card}))
 
     kernels = []
     for name in ("kv_block_gather", "kv_block_scatter"):
@@ -5595,6 +5822,8 @@ def phases(calls: list) -> list:
 FRESH_PHASES = {"phases": phases,
                 "whisper": whisper,
                 "distribution": distribution,
+                "dryrun_cells": dryrun_cells,
+                "dryrun_card": dryrun_card,
                 "moe": moe,
                 "train_launcher": train_launcher,
                 "experience_cold": experience_cold,

@@ -21,7 +21,7 @@
 * ``build_prefill_step(api)`` returns ``(params, batch) -> logits``.
 * ``build_serve_step(api)`` returns
   ``(params, cache, batch, index) -> (logits, cache)``; the cache is
-  updated in place.
+  updated in place (``shard_cache`` places it under a mesh).
 
 PyTorch runs eagerly, so there is no jit; prefill and decode run under
 ``torch.inference_mode()`` (a prefill under rules under ``no_grad``).
@@ -38,11 +38,15 @@ reduction), the clip norm is replicated before its square root, int8
 compression quantizes the blocks of each whole leaf, as the reference's
 reduced gradients, and AdamW updates the DTensor leaves in place.  The
 train step's metrics are plain tensors, the same on every rank; the
-prefill's logits stay a DTensor (``full_tensor()`` gathers them).  Not
-under a mesh of more than one device: host-resident optimizer state and
-the decode step, whose caches the reference shards over ``kv_seq``; both
-raise ``NotImplementedError``.  On a one-device mesh the decode step runs
-on the parameters' local tensors, which are the whole ones.
+prefill's logits stay a DTensor (``full_tensor()`` gathers them).  The
+decode step under a mesh of more than one device places plain cache
+leaves by ``api.cache_axes()`` (the sequence on ``kv_seq``, as the
+reference shards it) and returns the cache as DTensors, written in place
+on the rank whose sequence shard holds ``index``; its attention combines
+the ranks' partial softmax sums (``models.attention``).  On a one-device
+mesh the decode step runs on the parameters' local tensors, which are the
+whole ones.  Host-resident optimizer state under a mesh of more than one
+device raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -237,21 +241,37 @@ def build_prefill_step(api, *, rules: Optional[MeshRules] = None):
     return prefill_step
 
 
+def shard_cache(api, rules: MeshRules, cache):
+    """``cache`` with each plain leaf distributed by
+    ``rules.shardings_for(api.cache_axes(), cache)`` (every rank holds
+    the same values); DTensor leaves stay as they are."""
+    shardings = rules.shardings_for(api.cache_axes(), cache)
+    return pytree.tree_map(
+        lambda t, sh: t if is_dtensor(t) else sh.distribute(t), cache,
+        shardings)
+
+
 def build_serve_step(api, *, rules: Optional[MeshRules] = None):
-    if _many_devices(rules):
-        raise NotImplementedError(
-            "the decode step under a mesh of more than one device: the "
-            "reference shards its caches over kv_seq; the port's serving "
-            "is meshless")
-    shell = api.shell() if rules is not None else None
+    if not _many_devices(rules):
+        shell = api.shell() if rules is not None else None
 
-    def serve_step(params, cache, batch, index):
-        if shell is not None:
-            params = local_params(params, shell)
-        with torch.inference_mode():
-            return api.decode(params, batch, cache, index)
+        def serve_step(params, cache, batch, index):
+            if shell is not None:
+                params = local_params(params, shell)
+            with torch.inference_mode():
+                return api.decode(params, batch, cache, index)
 
-    return serve_step
+        return serve_step
+
+    def sharded_serve_step(params, cache, batch, index):
+        shard_params(params, rules)
+        cache = shard_cache(api, rules, cache)
+        # a DTensor's views cannot be made in inference mode
+        with torch.no_grad(), _under(rules):
+            return api.decode(params, _sharded_batch(rules, batch), cache,
+                              index)
+
+    return sharded_serve_step
 
 
 def opt_state_for(params, *, use_master: bool = False,
@@ -260,9 +280,21 @@ def opt_state_for(params, *, use_master: bool = False,
     ``meta`` device (shapes and dtypes, no storage)."""
     named = dict(params.named_parameters())
     if abstract:
-        named = {k: torch.empty(p.shape, dtype=p.dtype, device="meta")
-                 for k, p in named.items()}
+        named = {k: _meta_like(p) for k, p in named.items()}
     return adamw_init(named, use_master=use_master)
+
+
+def _meta_like(p: torch.Tensor) -> torch.Tensor:
+    """A ``meta`` tensor of ``p``'s shape and dtype; a DTensor keeps its
+    mesh and placements."""
+    if is_dtensor(p):
+        from torch.distributed.tensor import DTensor
+        local = torch.empty(p.to_local().shape, dtype=p.dtype,
+                            device="meta")
+        return DTensor.from_local(local, p.device_mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride())
+    return torch.empty(p.shape, dtype=p.dtype, device="meta")
 
 
 def opt_state_to_host(opt_state: AdamState) -> AdamState:

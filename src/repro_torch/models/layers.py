@@ -27,6 +27,8 @@ from torch import nn
 from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
+from ..device import is_dtensor
+
 Tree = Dict[str, Union[torch.Tensor, "Tree"]]
 Axes = Tuple[Optional[str], ...]
 
@@ -43,6 +45,26 @@ def set_active_rules(rules) -> None:
 
 def active_rules():
     return _ACTIVE_RULES
+
+
+def kept_shards(t, dims: Tuple[int, ...] = (0,)) -> list:
+    """The placements of DTensor ``t`` with only its shards of tensor
+    dims ``dims`` kept and every other mesh axis replicated: how a
+    computation that is local per index of those dims places its
+    operands before it runs on their local shards."""
+    from torch.distributed.tensor import Replicate
+    return [p if p.is_shard() and p.dim in dims else Replicate()
+            for p in t.placements]
+
+
+def replicated(t: torch.Tensor, mesh):
+    """``t`` as a DTensor on ``mesh``: itself if it is one, else
+    replicated (every rank holds the same value)."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 def constrain(x: torch.Tensor, logical: Axes) -> torch.Tensor:
@@ -230,7 +252,29 @@ class Embedding(ParamTree):
 
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+    """The rows of the table for ``tokens``.  A DTensor table is looked
+    up on local shards: its rows gathered (the FSDP axes), its columns
+    kept sharded, the tokens on their batch shards, so the backward's
+    scatter into the table runs on plain tensors (DTensor's sharding
+    rule for it fails on some torch releases); the table's gradient is a
+    partial sum over the axes that shard the tokens."""
+    tok = p["tok"]
+    if not is_dtensor(tok):
+        return tok[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    mesh = tok.device_mesh
+    tokens = replicated(tokens, mesh)
+    tp, xp = kept_shards(tok, (1,)), kept_shards(tokens)
+    if any(a.is_shard() and b.is_shard() for a, b in zip(tp, xp)):
+        raise ValueError(f"a mesh axis shards both the table's columns "
+                         f"and the tokens: {tp}, {xp}")
+    grad = [Partial() if b.is_shard() else a for a, b in zip(tp, xp)]
+    table = tok.redistribute(mesh, tp).to_local(grad_placements=grad)
+    local = tokens.redistribute(mesh, xp).to_local()
+    return DTensor.from_local(
+        table[local.long()], mesh,
+        [Shard(local.dim()) if a.is_shard() else b for a, b in zip(tp, xp)],
+        run_check=False)
 
 
 def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
@@ -248,9 +292,21 @@ def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
 def _lse_and_gold(logits: torch.Tensor, labels: torch.Tensor):
     """fp32 logsumexp over the vocab and the logit of each label (labels
     < 0 pick class 0; the caller masks them).  Under a mesh the vocab is
-    gathered first: DTensor's masked gather of vocab-sharded logits fails
-    when its partial result is reduced."""
-    logits = constrain(logits, ("dp", None, None)).float()
+    gathered first (DTensor's masked gather of vocab-sharded logits fails
+    when its partial result is reduced), and both run on each rank's
+    batch shard: DTensor's gather backward would make its zeros at the
+    global batch on every rank."""
+    logits = constrain(logits, ("dp", None, None))
+    if is_dtensor(logits):
+        from torch.distributed.tensor import DTensor
+        mesh = logits.device_mesh
+        pl = kept_shards(logits)
+        lse, gold = _lse_and_gold(
+            logits.redistribute(mesh, pl).to_local(),
+            replicated(labels, mesh).redistribute(mesh, pl).to_local())
+        return (DTensor.from_local(lse, mesh, pl, run_check=False),
+                DTensor.from_local(gold, mesh, pl, run_check=False))
+    logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.clamp_min(0).long()[..., None])[..., 0]

@@ -6,6 +6,7 @@
     loss = api.loss(params, batch)
     logits, aux = api.forward(params, batch)
     cache = api.init_cache(batch, max_len)
+    axes = api.cache_axes()           # the cache's logical axes
     logits, cache = api.decode(params, batch, cache, index)
     batch = api.input_specs(shape_spec, abstract=False, seed=0)
     batch = api.decode_input_specs(shape_spec, abstract=False, seed=0)
@@ -15,7 +16,10 @@
 parameter module on the ``meta`` device (shapes and dtypes, no storage),
 for callers that fill or trace it.  ``abstract_cache`` and
 ``input_specs(..., abstract=True)`` build tensors on the ``meta`` device, which takes the place of ``jax.eval_shape``: shapes
-and dtypes, no storage.  A concrete batch is drawn from numpy with the
+and dtypes, no storage.  The reference's ``init_cache`` returns ``(cache,
+axes)``; here ``init_cache``/``abstract_cache`` return the cache alone
+(the serving engine reads ``abstract_cache(1, 1)``) and ``cache_axes()``
+the axes tree beside it.  A concrete batch is drawn from numpy with the
 seed (the JAX package draws from ``jax.random``, so the two differ; parity
 tests hand both packages one numpy batch).
 """
@@ -61,6 +65,7 @@ class ModelAPI:
     shell: Callable
     init_cache: Callable
     abstract_cache: Callable
+    cache_axes: Callable
     decode: Callable
     loss: Callable
     forward: Callable
@@ -128,6 +133,7 @@ def _lm_api(cfg: ModelConfig, device: torch.device) -> ModelAPI:
                     shell=lambda: transformer.TransformerLM(cfg,
                                                             device="meta"),
                     init_cache=init_cache, abstract_cache=abstract_cache,
+                    cache_axes=lambda: transformer.cache_axes(cfg),
                     decode=decode, loss=loss, forward=fwd,
                     input_specs=input_specs,
                     decode_input_specs=decode_input_specs)
@@ -177,6 +183,7 @@ def _whisper_api(cfg: ModelConfig, device: torch.device) -> ModelAPI:
     return ModelAPI(cfg=cfg, device=device, init=init,
                     shell=lambda: whisper.abstract_whisper(cfg),
                     init_cache=init_cache, abstract_cache=abstract_cache,
+                    cache_axes=lambda: whisper.cache_axes(cfg),
                     decode=decode, loss=loss,
                     forward=lambda params, batch: whisper.forward(
                         params, batch, cfg),

@@ -239,6 +239,15 @@ def init_ssm_cache(batch: int, cfg, dtype, device,
     }
 
 
+def ssm_cache_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+    """The logical axes of the Mamba-2 cache leaves: the conv state of x
+    and the SSM state sharded on ``"tp"`` (channels, heads)."""
+    return {"conv_x": ("dp", None, "tp"),
+            "conv_b": ("dp", None, None),
+            "conv_c": ("dp", None, None),
+            "state": ("dp", "tp", None, None)}
+
+
 def mamba2_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        cfg):
     """x: (B,1,d); cache: {conv_x, conv_b, conv_c, state}.

@@ -20,12 +20,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_block, decode_attention_block,
-                        init_kv_cache)
+                        init_kv_cache, kv_cache_axes)
 from .layers import (MLP, Embedding, ParamTree, constrain, embed_tokens,
                      fused_unembed_cross_entropy, mlp_apply, ones_init,
                      rmsnorm, softmax_cross_entropy, unembed)
 from .moe import MoE, moe_apply
-from .ssm import Mamba2, init_ssm_cache, mamba2_block, mamba2_decode_step
+from .ssm import (Mamba2, init_ssm_cache, mamba2_block, mamba2_decode_step,
+                  ssm_cache_axes)
 
 
 # ----------------------------------------------------------------------
@@ -220,6 +221,22 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, Any]:
     cache["blocks"] = {f"layer{i}": layer_cache(spec, (cfg.n_repeats,))
                        for i, spec in enumerate(cfg.block)}
     return cache
+
+
+def cache_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of ``init_cache``'s tree, leaf for leaf (the
+    reference's ``init_cache(...)[1]``): block leaves lead with
+    ``"layers"``."""
+    def layer_axes(spec):
+        return kv_cache_axes() if spec.mixer == "attn" else ssm_cache_axes()
+
+    axes: Dict[str, Any] = {f"prefix{i}": layer_axes(spec)
+                            for i, spec in enumerate(cfg.prefix)}
+    axes["blocks"] = {
+        f"layer{i}": {k: ("layers",) + a
+                      for k, a in layer_axes(spec).items()}
+        for i, spec in enumerate(cfg.block)}
+    return axes
 
 
 def _decode_layer(p, spec, x, cache, index, cfg):

@@ -19,7 +19,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_block, cross_attention_block,
-                        decode_attention_block, init_kv_cache)
+                        decode_attention_block, init_kv_cache,
+                        kv_cache_axes)
 from .layers import (MLP, Embedding, ParamTree, constrain, embed_tokens,
                      mlp_apply, ones_init, rmsnorm, softmax_cross_entropy,
                      unembed)
@@ -189,6 +190,12 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, Any]:
     return {"self": init_kv_cache(batch, max_len, cfg.n_kv_heads,
                                   cfg.head_dim, getattr(torch, cfg.dtype),
                                   device, lead=(cfg.n_layers,))}
+
+
+def cache_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of ``init_cache``'s tree (the reference's
+    ``init_cache(...)[1]``)."""
+    return {"self": {k: ("layers",) + a for k, a in kv_cache_axes().items()}}
 
 
 def decode_step(params: WhisperModel, cfg, tokens: torch.Tensor,

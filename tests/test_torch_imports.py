@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and not the port's tools (``tools/experience_torch.py``,
-``tools/tensile_svc_torch.py``, ``tools/tensile_trace_torch.py``) loads
-JAX or the JAX package; and its entry points refuse to run on a missing
+``chip_smoke.py``, not the port's tools (``tools/experience_torch.py``,
+``tools/tensile_svc_torch.py``, ``tools/tensile_trace_torch.py``) and not
+its examples (``examples/*_torch.py``) loads JAX or the JAX package; and its entry points refuse to run on a missing
 card instead of falling back to the CPU."""
 import os
 import subprocess
@@ -34,8 +34,10 @@ TENSILE_MODULES = [f"repro_torch.{m}" for m in (
     "runtime.fault_tolerance", "launch.train", "models.moe",
     "models.whisper", "obs.trace", "service.store", "service.daemon",
     "service.client", "launch.serve", "launch.mesh", "launch.sharding",
-    "runtime.elastic")]
+    "runtime.elastic", "launch.dryrun")]
 PORT_TOOLS = ["experience_torch", "tensile_svc_torch", "tensile_trace_torch"]
+PORT_EXAMPLES = ["quickstart_torch", "serve_lm_torch", "multi_workload_torch",
+                 "train_lm_torch"]
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -52,13 +54,17 @@ def test_port_and_chip_smoke_import_no_jax():
             tool = importlib.util.spec_from_file_location(
                 name, f"tools/{name}.py")
             tool.loader.exec_module(importlib.util.module_from_spec(tool))
+        for name in EXAMPLES:
+            ex = importlib.util.spec_from_file_location(
+                name, f"examples/{name}.py")
+            ex.loader.exec_module(importlib.util.module_from_spec(ex))
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         missing = sorted(set(TENSILE) - set(names))
         print(len(names), bad, missing)
         sys.exit(1 if bad or missing or len(names) < 20 else 0)
     """).replace("TENSILE", repr(TENSILE_MODULES)).replace(
-        "TOOLS", repr(PORT_TOOLS))
+        "TOOLS", repr(PORT_TOOLS)).replace("EXAMPLES", repr(PORT_EXAMPLES))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), ROOT]))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -360,6 +360,60 @@ def check_restart(rank, d):
           **{"w:" + k: v for k, v in _flat_params(plain).items()})
 
 
+DECODE_ARCHS = (ARCH, "mamba2-780m", "whisper-base", MOE_ARCH)
+DECODE_B, DECODE_LEN, DECODE_STEPS = 4, 8, 4
+
+
+def check_sharded_decode(rank, d):
+    """``build_serve_step(rules=)`` on (2, 2) and (1, 4) for reduced
+    TinyLlama, Mamba-2, whisper and Moonlight at two layers: four steps
+    from an empty cache beside the meshless step; the logits, and each
+    rank's local cache shards with their global offsets."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshRules
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models.registry import get_model
+    out = {}
+    for arch in DECODE_ARCHS:
+        cfg = get_config(arch).reduced(n_layers=2)
+        api = get_model(cfg, "cpu")
+        shape = ShapeSpec("d", DECODE_LEN, DECODE_B, "decode")
+        plain_step = build_serve_step(api)
+        plain = api.init(torch.Generator().manual_seed(0))
+        want_cache = api.init_cache(DECODE_B, DECODE_LEN)
+        wants = []
+        batches = [api.decode_input_specs(shape, abstract=False, seed=i)
+                   for i in range(DECODE_STEPS)]
+        for i, b in enumerate(batches):
+            lg, want_cache = plain_step(plain, want_cache, b, i)
+            wants.append(_np(lg))
+        for mshape in ((2, 2), (1, 4)):
+            tag = f"{arch}:{mshape[0]}x{mshape[1]}"
+            rules = MeshRules(make_mesh(mshape, ("data", "model")), cfg=cfg)
+            step = build_serve_step(api, rules=rules)
+            model = api.init(torch.Generator().manual_seed(0))
+            cache = api.init_cache(DECODE_B, DECODE_LEN)
+            got = []
+            for i, b in enumerate(batches):
+                lg, cache = step(model, cache, b, i)
+                got.append(_np(lg))
+            out[tag + ":logits"] = np.stack(got)
+            out[tag + ":want"] = np.stack(wants)
+            for k, t in _flat_tree(cache).items():
+                off = compute_local_shape_and_global_offset(
+                    t.shape, t.device_mesh, t.placements)[1]
+                out[f"{tag}:c:{k}"] = t.to_local().numpy()
+                out[f"{tag}:o:{k}"] = np.array(off)
+                out[f"{tag}:p:{k}"] = np.array(str(t.placements))
+            for k, t in _flat_tree(want_cache).items():
+                out[f"{tag}:w:{k}"] = t.numpy()
+    _save(d, "sharded_decode", rank, **out)
+
+
 # ----------------------------------------------------------------------
 # one rank
 # ----------------------------------------------------------------------
@@ -427,6 +481,7 @@ GROUPS = {
               check_a2a,
               check_elastic, check_launcher, check_restart),
     "world1": (check_one_device,),
+    "decode4": (check_sharded_decode,),
 }
 
 
