@@ -222,13 +222,29 @@ Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
    a checkpoint saved on the mesh restored into a DTensor template, both
    bit-identical; and ``launch.train.main --full --mesh 1,1`` for 3
    steps.  The wall ms of the prefill and the train step, meshless and
-   under the mesh, are printed.
+   under the mesh, are printed.  In the same process, ``moe_mesh``:
+   full-width Moonlight-16B-A3B at MOE_TRAIN_LAYERS of its 48 layers,
+   whose scatter MoE under the rules routes the data shards of the
+   tokens (``models.moe._scatter_on_shards``): a bf16 prefill (B 4 x
+   S 2048) through the flash kernel (one launch per layer, counted from
+   0) and two train steps (B 4 x S 1024), meshless and on the (1, 1)
+   mesh, with logits, losses, parameters and both moments bit-identical
+   (a per-leaf 64-bit hash on the card) and the allocator's peak within
+   5 %; and
+   ``serve_mesh``: full-width TinyLlama-1.1B served by
+   ``ServingEngine(rules=...)`` on the (1, 1) mesh (its cache placed by
+   ``api.cache_axes()``, transfers on the local shards) under the serve
+   phase's budget, its tokens the serve phase's golden run's, its
+   decision trace, transfer bytes and KV launches that phase's meshless
+   budgeted run's, with evictions and no OOM.
 11. The dry run (``dryrun_cells`` and ``dryrun_card``): in a fresh
    process beside the distribution phase's, ``launch.dryrun.run_cell`` on
    rank 0 of a 512-rank ``fake`` world on the 16 x 16 mesh for
    TinyLlama-1.1B's ``train_4k``, ``prefill_32k`` and ``decode_32k``,
-   Moonlight's ``decode_32k`` and Mamba-2's ``long_500k`` (each record's
-   peak, FLOPs, dominant term and collective mix printed); then, in the
+   Moonlight's ``decode_32k`` and ``train_4k``, Gemma-2B's ``train_4k``
+   and Mamba-2's ``long_500k`` (each record's peak, FLOPs, dominant term
+   and collective mix printed; the three ``train_4k`` cells must fit the
+   card's 80 GB, as the reference's own accounting fits them); then, in the
    distribution phase's process after its gates, full-width
    TinyLlama-1.1B's train step (B 4 x S 1024, block remat), prefill (B 4
    x S 2048) and four decode steps (B 4, a 2048-position cache) on the
@@ -1072,10 +1088,13 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
         mem = MemoryEngine(profile=profile, capacity_bytes=budget,
                            trace=True)
         shapes = collections.Counter()
+        moved = []
         if name == "budgeted":
             # the main path: counts from 0, calls recorded as it makes them
             kbc.kv_block_gather.launches = 0
             kbc.kv_block_scatter.launches = 0
+            xfer = eng._xfer
+            eng._xfer = lambda fn: moved.append(xfer(fn)) or moved[-1]
             serving_engine.kv_block_gather = _spy(kbc.kv_block_gather,
                                                   "kv_block_gather", shapes)
             serving_engine.kv_block_scatter = _spy(kbc.kv_block_scatter,
@@ -1096,12 +1115,14 @@ def serve(profile: MachineProfile, arch: str = ARCH) -> dict:
             serving_engine.kv_block_scatter = kbc.kv_block_scatter
             eng.__dict__.pop("_save_slots", None)
             eng.__dict__.pop("_restore_slots", None)
+            eng.__dict__.pop("_xfer", None)
         wall = time.perf_counter() - t
         launches = {"kv_block_gather": kbc.kv_block_gather.launches,
                     "kv_block_scatter": kbc.kv_block_scatter.launches}
         runs[name] = dict(
             report=rep, out=out, wall_s=wall, shapes=shapes,
-            launches=launches, budget=budget,
+            launches=launches, budget=budget, moved=moved,
+            trace=mem.trace.keys(),
             median_step_ms=statistics.median(step_ms),
             max_memory_allocated=torch.cuda.max_memory_allocated())
         log(f"[serve] {name}: budget {budget} B, wall {wall:.3f} s, "
@@ -5255,12 +5276,237 @@ def distribution(device: str = "cuda", cfg=None,
     return rec
 
 
+DIGEST_CHUNK = 1 << 26                  # elements hashed at a time
+
+
+def card_digest(t: torch.Tensor) -> tuple:
+    """``t``'s shape, dtype and a 64-bit hash of its bits computed where
+    it lies: the sum, wrapping in int64, of each element's bit pattern
+    times an odd weight mixed from its index.  Equal bits give equal
+    hashes; tensors whose bits differ collide with a chance near 2^-63.
+    (A host sha256 of Moonlight's 30 GB of state per run cost about a
+    minute.)"""
+    flat = t.detach().contiguous().reshape(-1)
+    flat = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    h = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for i in range(0, flat.numel(), DIGEST_CHUNK):
+        v = flat[i:i + DIGEST_CHUNK].to(torch.int64)
+        w = torch.arange(i, i + v.numel(), dtype=torch.int64,
+                         device=flat.device) * -7046029254386353131
+        w = (w ^ (w >> 31)) * -4658895280553007687 | 1
+        h += (v * w).sum()
+    return tuple(t.shape), str(t.dtype), int(h)
+
+
+def _leaf_digests(params, opt) -> dict:
+    """``card_digest`` of each parameter and moment (its local shard: on a
+    one-device mesh, the whole tensor), by name."""
+    out = {"p:" + k: card_digest(_local(p)) for k, p in
+           params.named_parameters()}
+    for tag, tree in (("mu:", opt.mu), ("nu:", opt.nu)):
+        out.update({tag + k: card_digest(_local(t))
+                    for k, t in tree.items()})
+    return out
+
+
+def moe_mesh(device: str = "cuda", cfg=None,
+             prefill_shape=(PREFILL_B, PREFILL_S),
+             train_shape=(TRAIN_B, TRAIN_S)) -> dict:
+    """Full-width Moonlight-16B-A3B at MOE_TRAIN_LAYERS layers on the
+    (1, 1) host mesh, whose scatter MoE routes the tokens' data shards: a
+    bf16 prefill through the flash kernel and two train steps, each
+    meshless then under the rules.  Gates: the logits, the losses, every
+    parameter and both moments bit-identical (``card_digest``), one flash
+    launch per layer under the mesh, the allocator's peak over the steps
+    under the mesh within MESH_MEMORY_TOL of meshless.  Runs in the
+    distribution phase's process; ``device``, ``cfg`` and the shapes
+    rehearse it on the CPU at a reduced size."""
+    t0 = time.perf_counter()
+    deterministic()
+    dev = device
+    cfg = cfg or dataclasses.replace(get_config(MOE_ARCH),
+                                     n_layers=MOE_TRAIN_LAYERS)
+    init_world(dev)
+    mesh = make_host_mesh(device=dev)
+    if tuple(mesh.shape) != (1, 1):
+        raise AssertionError(f"a mesh {tuple(mesh.shape)}, want (1, 1)")
+    rules = MeshRules(mesh, cfg=cfg)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    rec: dict = {"card": card_line() if dev == "cuda" else "cpu",
+                 "arch": cfg.name, "layers": cfg.n_layers}
+
+    api = get_model(dataclasses.replace(cfg, use_flash_kernel=True), dev)
+    b, s = prefill_shape
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s),
+                                               dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    params = api.init(gen())
+    sync()
+    t = time.perf_counter()
+    want = build_prefill_step(api)(params, batch)
+    sync()
+    meshless_ms = (time.perf_counter() - t) * 1e3
+    shard_params(params, rules)
+    sync()
+    fa.flash_attention_fwd.launches = 0      # the main path: counts from 0
+    t = time.perf_counter()
+    got = build_prefill_step(api, rules=rules)(params, batch)
+    sync()
+    rec["prefill"] = {"launches": fa.flash_attention_fwd.launches,
+                      "bit_identical": torch.equal(_local(got), want),
+                      "shape": list(got.shape), "meshless_ms": meshless_ms,
+                      "mesh_ms": (time.perf_counter() - t) * 1e3}
+    log(f"[moe_mesh] prefill B={b} S={s}: " + json.dumps(rec["prefill"]))
+    if rec["prefill"]["launches"] != cfg.n_layers:
+        raise AssertionError(f"{rec['prefill']['launches']} flash launches "
+                             f"under the mesh, want {cfg.n_layers}")
+    if not rec["prefill"]["bit_identical"]:
+        raise AssertionError("Moonlight's prefill under the mesh is not the "
+                             "meshless one bit for bit")
+    del want, got, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    api = get_model(cfg, dev)
+    b, s = train_shape
+    tbatch = api.input_specs(ShapeSpec("moe_mesh_train", s, b, "train"),
+                             abstract=False, seed=0)
+    runs = {}
+    for tag, r in (("meshless", None), ("mesh", rules)):
+        params = api.init(gen())
+        step = build_train_step(api, TrainStepConfig(), rules=r)
+        if r is not None:
+            shard_params(params, r)
+        opt = opt_state_for(params)
+        losses, ms = [], []
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            t = time.perf_counter()
+            _, opt, m = step(params, opt, tbatch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t) * 1e3)
+        runs[tag] = {"losses": losses, "step_ms": ms,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()
+                     if dev == "cuda" else None,
+                     "digests": _leaf_digests(params, opt)}
+        del params, opt, step, m
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    plain, sharded = runs["meshless"], runs["mesh"]
+    mismatched = [k for k, h in plain["digests"].items()
+                  if sharded["digests"].get(k) != h]
+    rec["train"] = {k: {"losses": r["losses"], "step_ms": r["step_ms"],
+                        "max_memory_allocated": r["max_memory_allocated"]}
+                    for k, r in runs.items()}
+    rec["train"]["leaves"] = len(plain["digests"])
+    rec["train"]["mismatched_leaves"] = mismatched
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[moe_mesh] train B={b} S={s}: " + json.dumps(rec["train"]))
+    log(f"[phase] moe_mesh {rec['seconds']:.2f} s")
+    if plain["losses"] != sharded["losses"] or mismatched or \
+            set(plain["digests"]) != set(sharded["digests"]):
+        raise AssertionError("Moonlight's steps under the mesh are not the "
+                             f"meshless ones bit for bit: {rec['train']}")
+    if dev == "cuda" and sharded["max_memory_allocated"] > (
+            1 + MESH_MEMORY_TOL) * plain["max_memory_allocated"]:
+        raise AssertionError("Moonlight's steps under the mesh allocated "
+                             f"more than {1 + MESH_MEMORY_TOL} x the "
+                             "meshless ones")
+    return rec
+
+
+def serve_reference(runs: dict) -> dict:
+    """What ``serve_mesh`` holds the engine on the mesh to, from the serve
+    phase's meshless runs (``serve(...)["runs"]``): the golden tokens, and
+    the budgeted run's decision trace, transfer bytes and KV launches, in
+    JSON's types."""
+    bud = runs["budgeted"]
+    return {"golden": runs["golden"]["out"], "budget": bud["budget"],
+            "trace": [list(k) for k in bud["trace"]], "moved": bud["moved"],
+            "launches": bud["launches"]}
+
+
+def serve_mesh(ref_path: str, device: str = "cuda", arch: str = ARCH,
+               reduced: bool = False) -> dict:
+    """``ServingEngine(rules=...)`` on the (1, 1) host mesh, full-width
+    TinyLlama-1.1B, the serve phase's trace and budget (batched
+    transfers), against the serve phase's meshless runs
+    (``serve_reference``, a JSON file at ``ref_path``): its tokens are the
+    golden run's, its decision trace, each transfer's bytes and its KV
+    launches the meshless budgeted run's, with evictions and no OOM.
+    Runs in the distribution phase's process."""
+    t0 = time.perf_counter()
+    dev = device
+    with open(ref_path) as f:
+        ref = json.load(f)
+    init_world(dev)
+    rules = MeshRules(make_host_mesh(device=dev), cfg=get_config(arch))
+    eng = ServingEngine(arch, reduced=reduced, max_sequences=MAX_SEQUENCES,
+                        max_len=MAX_LEN, seed=0, device=dev, rules=rules)
+    reqs = make_trace("poisson", N_REQUESTS, seed=0, prompt_len=PROMPT_LEN,
+                      gen_len=GEN_LEN)
+    budget = eng.bytes_per_token * (2 * MAX_LEN + 2)
+    mem = MemoryEngine(profile=MachineProfile(), capacity_bytes=budget,
+                       trace=True)
+    moved, xfer = [], eng._xfer
+    eng._xfer = lambda fn: moved.append(xfer(fn)) or moved[-1]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    kbc.kv_block_gather.launches = 0         # the main path: counts from 0
+    kbc.kv_block_scatter.launches = 0
+    t = time.perf_counter()
+    rep, out = eng.serve(reqs, budget_bytes=budget, schedule=True,
+                         block_tokens=4, engine=mem, batch_transfers=True)
+    sync()
+    rec = {"card": card_line() if dev == "cuda" else "cpu", "budget": budget,
+           "tokens_equal_golden": out == ref["golden"],
+           "trace_equal": [list(k) for k in mem.trace.keys()]
+           == ref["trace"],
+           "moved_equal": moved == ref["moved"],
+           "moved_bytes": sum(moved), "transfers": len(moved),
+           "launches": {"kv_block_gather": kbc.kv_block_gather.launches,
+                        "kv_block_scatter": kbc.kv_block_scatter.launches},
+           "meshless_launches": ref["launches"],
+           "oom_events": rep.oom_events, "evictions": rep.evictions,
+           "wall_s": time.perf_counter() - t,
+           "cache": sorted({type(x).__name__ for x in
+                            serving_engine.tree_leaves(eng.cache)}),
+           "seconds": time.perf_counter() - t0}
+    log("[serve_mesh] " + json.dumps(rec))
+    log(f"[phase] serve_mesh {rec['seconds']:.2f} s")
+    if budget != ref["budget"] or not (
+            rec["tokens_equal_golden"] and rec["trace_equal"]
+            and rec["moved_equal"]):
+        raise AssertionError("the engine on the mesh departs from the "
+                             f"meshless engine: {rec}")
+    if eng.rules is None or rec["cache"] != ["DTensor"]:
+        raise AssertionError(f"the mesh engine's cache is {rec['cache']}, "
+                             "not placed on the mesh")
+    if dev == "cuda" and (rec["launches"] != ref["launches"] or min(
+            rec["launches"].values()) <= 0):
+        raise AssertionError(f"KV launches on the mesh {rec['launches']}, "
+                             f"meshless {ref['launches']}")
+    if rep.oom_events != 0 or rep.evictions <= 0:
+        raise AssertionError(f"the mesh engine's run: oom_events "
+                             f"{rep.oom_events}, evictions {rep.evictions}")
+    return rec
+
+
 # ----------------------------------------------------------------------
 # the dry run
 # ----------------------------------------------------------------------
 DRYRUN_CELLS = [(ARCH, "train_4k"), (ARCH, "prefill_32k"),
-                (ARCH, "decode_32k"), ("moonshot-v1-16b-a3b", "decode_32k"),
-                (SSM_ARCH, "long_500k")]
+                (ARCH, "decode_32k"), (MOE_ARCH, "decode_32k"),
+                (SSM_ARCH, "long_500k"), (MOE_ARCH, "train_4k"),
+                ("gemma-2b", "train_4k")]
+# the cells whose per-device peak must fit the card (the reference's own
+# accounting fits them in 80 GB)
+DRYRUN_FITS = [(ARCH, "train_4k"), (MOE_ARCH, "train_4k"),
+               ("gemma-2b", "train_4k")]
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_DECODE_STEPS = 4
 DRYRUN_DECODE_LEN = 2048
@@ -5271,7 +5517,8 @@ def dryrun_cells() -> list:
     rank 0 of a 512-rank ``fake`` world in this process (a fresh one: the
     fake world cannot share a process with an NCCL world); each record's
     peak, FLOPs, dominant term and collective mix.  Gates: finite,
-    positive FLOPs and a peak at least the arguments."""
+    positive FLOPs, a peak at least the arguments, and the DRYRUN_FITS
+    cells within the card's memory."""
     from repro_torch.launch import dryrun
     out = []
     for arch, shape in DRYRUN_CELLS:
@@ -5298,6 +5545,10 @@ def dryrun_cells() -> list:
         if rec["per_device_peak_bytes"] < rec["per_device"]["arguments"]:
             raise AssertionError(f"{arch} x {shape}: a peak below the "
                                  "arguments")
+        if (arch, shape) in DRYRUN_FITS and not rec["fits_device_memory"]:
+            raise AssertionError(f"{arch} x {shape}: a per-device peak of "
+                                 f"{rec['per_device_peak_bytes']} B does "
+                                 "not fit the card")
         out.append(summary)
     return out
 
@@ -5544,6 +5795,11 @@ def main() -> int:
     tf128 = timed("time_flash_d128", time_flash, FLASH_D128, False)
     bud = result["runs"]["budgeted"]
     serve_launches = bud["launches"]
+    # the meshless runs that serve_mesh holds the engine on the mesh to
+    serve_ref = os.path.join(tempfile.mkdtemp(prefix="serve-ref-"),
+                             "serve_ref.json")
+    with open(serve_ref, "w") as f:
+        json.dump(serve_reference(result["runs"]), f)
     del result, bud
     torch.cuda.empty_cache()
 
@@ -5689,11 +5945,14 @@ def main() -> int:
     # against meshless, then each step accounted on meta and on the card
     t0 = time.perf_counter()
     cells_proc = start_fresh("dryrun_cells")
-    dist_rec, dry_card = timed("distribution_and_dryrun_card",
-                               lambda: in_fresh_process(
-                                   "phases", [["distribution", []],
-                                              ["dryrun_card", []]],
-                                   timeout=900))
+    try:
+        dist_rec, moe_mesh_rec, serve_mesh_rec, dry_card = timed(
+            "distribution_and_dryrun_card", lambda: in_fresh_process(
+                "phases", [["distribution", []], ["moe_mesh", []],
+                           ["serve_mesh", [serve_ref]],
+                           ["dryrun_card", []]], timeout=900))
+    finally:
+        shutil.rmtree(os.path.dirname(serve_ref), ignore_errors=True)
     log("[distribution] " + json.dumps(dist_rec))
     dry_cells = finish_fresh(cells_proc, "dryrun_cells", timeout=600)
     log(f"[phase] dryrun (cells beside the card check) "
@@ -5723,6 +5982,7 @@ def main() -> int:
             "restore_device_busy_ms": {
                 arch: r["device_busy_ms"] for arch, r in restore.items()},
             "launches_moe_serve": mo["serve"]["budgeted"]["launches"][name],
+            "launches_serve_mesh": serve_mesh_rec["launches"][name],
             "moonlight": mo["kv"][name],
             "moonlight_bound_ms": mo["kv"]["bound_ms"],
             "max_abs_err_moonlight": mo["kv_max_abs_err"]})
@@ -5749,6 +6009,7 @@ def main() -> int:
             "shape": list(FLASH_MOONLIGHT[:6]) + ["bfloat16", "causal"]},
         "launches_whisper_prefill": wh["prefill"]["launches"],
         "launches_mesh_prefill": dist_rec["prefill"]["launches"],
+        "launches_moe_mesh_prefill": moe_mesh_rec["prefill"]["launches"],
         "whisper": {**{k: wh["flash"][k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "tflops")}, "device_ms": wh["prefill"]["kernel_device_ms"],
@@ -5822,6 +6083,8 @@ def phases(calls: list) -> list:
 FRESH_PHASES = {"phases": phases,
                 "whisper": whisper,
                 "distribution": distribution,
+                "moe_mesh": moe_mesh,
+                "serve_mesh": serve_mesh,
                 "dryrun_cells": dryrun_cells,
                 "dryrun_card": dryrun_card,
                 "moe": moe,

@@ -44,8 +44,9 @@ leaves by ``api.cache_axes()`` (the sequence on ``kv_seq``, as the
 reference shards it) and returns the cache as DTensors, written in place
 on the rank whose sequence shard holds ``index``; its attention combines
 the ranks' partial softmax sums (``models.attention``).  On a one-device
-mesh the decode step runs on the parameters' local tensors, which are the
-whole ones.  Host-resident optimizer state under a mesh of more than one
+mesh the decode step runs on the local tensors of the parameters and of
+the cache (which may be DTensors: the serving engine places it), which
+are the whole ones, and returns the cache it was given.  Host-resident optimizer state under a mesh of more than one
 device raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -256,10 +257,15 @@ def build_serve_step(api, *, rules: Optional[MeshRules] = None):
         shell = api.shell() if rules is not None else None
 
         def serve_step(params, cache, batch, index):
-            if shell is not None:
-                params = local_params(params, shell)
+            if shell is None:
+                with torch.inference_mode():
+                    return api.decode(params, batch, cache, index)
+            params = local_params(params, shell)
+            local = pytree.tree_map(
+                lambda t: t.to_local() if is_dtensor(t) else t, cache)
             with torch.inference_mode():
-                return api.decode(params, batch, cache, index)
+                logits, _ = api.decode(params, batch, local, index)
+            return logits, cache
 
         return serve_step
 

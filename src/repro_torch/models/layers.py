@@ -289,23 +289,80 @@ def unembed(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # Loss
 # ----------------------------------------------------------------------
+class _VocabParallelLseGold(torch.autograd.Function):
+    """fp32 logsumexp and gold logit over a vocabulary sharded across
+    ranks, on each rank's local logits (..., V_loc) whose first column is
+    global column ``lo``: the local max, all-reduced (MAX) over
+    ``groups``; the local sum of ``exp(x - max)``, all-reduced (SUM);
+    ``lse = max + log(sum)``; the gold logit from the rank that holds the
+    label's column (0 elsewhere), all-reduced (SUM).  The backward is
+    local, ``softmax * d_lse + onehot * d_gold`` in the logits' dtype, from
+    the saved local logits (no fp32 copy of them is kept)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, groups):
+        from torch.distributed import _functional_collectives as funcol
+        v = logits.shape[-1]
+        m = logits.amax(dim=-1).float()
+        for g in groups:
+            m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+        e = logits.to(torch.float32, copy=True)
+        ssum = e.sub_(m[..., None]).exp_().sum(dim=-1)
+        del e
+        col = labels.clamp_min(0).long() - lo
+        inside = (col >= 0) & (col < v)
+        col = col.clamp(0, v - 1)[..., None]
+        gold = torch.where(inside, torch.gather(logits, -1, col)[..., 0]
+                           .float(), 0.0)
+        for g in groups:
+            ssum = funcol.wait_tensor(funcol.all_reduce(ssum, "sum", g))
+            gold = funcol.wait_tensor(funcol.all_reduce(gold, "sum", g))
+        lse = m + torch.log(ssum)
+        ctx.save_for_backward(logits, lse, col, inside)
+        return lse, gold
+
+    @staticmethod
+    def backward(ctx, d_lse, d_gold):
+        logits, lse, col, inside = ctx.saved_tensors
+        g = logits.to(torch.float32, copy=True)
+        g.sub_(lse[..., None]).exp_()
+        g.mul_(d_lse[..., None] if d_lse is not None else 0.0)
+        if d_gold is not None:
+            at = g.gather(-1, col) + torch.where(inside, d_gold, 0.0)[..., None]
+            g = g.scatter(-1, col, at)
+        return g.to(logits.dtype), None, None, None
+
+
 def _lse_and_gold(logits: torch.Tensor, labels: torch.Tensor):
     """fp32 logsumexp over the vocab and the logit of each label (labels
-    < 0 pick class 0; the caller masks them).  Under a mesh the vocab is
-    gathered first (DTensor's masked gather of vocab-sharded logits fails
-    when its partial result is reduced), and both run on each rank's
-    batch shard: DTensor's gather backward would make its zeros at the
-    global batch on every rank."""
-    logits = constrain(logits, ("dp", None, None))
+    < 0 pick class 0; the caller masks them).  Under a mesh both run on
+    each rank's shards of the logits, placed as the reference places them
+    (batch over the data axes, vocab over ``"model"``), with the loss on
+    each rank's batch shard (DTensor's gather backward would make its
+    zeros at the global batch on every rank): a vocabulary sharded on a
+    mesh axis of extent above 1 goes through ``_VocabParallelLseGold``,
+    an unsharded one through the meshless formula."""
+    logits = constrain(logits, ("dp", None, "tp"))
     if is_dtensor(logits):
         from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
         mesh = logits.device_mesh
-        pl = kept_shards(logits)
-        lse, gold = _lse_and_gold(
-            logits.redistribute(mesh, pl).to_local(),
-            replicated(labels, mesh).redistribute(mesh, pl).to_local())
-        return (DTensor.from_local(lse, mesh, pl, run_check=False),
-                DTensor.from_local(gold, mesh, pl, run_check=False))
+        last = logits.dim() - 1
+        pl = kept_shards(logits, (0, last))
+        bp = kept_shards(logits)
+        local = logits.redistribute(mesh, pl).to_local()
+        lab = replicated(labels, mesh).redistribute(mesh, bp).to_local()
+        groups = tuple((mesh, i) for i, p in enumerate(pl)
+                       if p.is_shard(last))
+        if groups:
+            lo = compute_local_shape_and_global_offset(
+                logits.shape, mesh, pl)[1][last]
+            lse, gold = _VocabParallelLseGold.apply(local, lab, lo, groups)
+        else:
+            lse, gold = _lse_and_gold(local, lab)
+        return (DTensor.from_local(lse, mesh, bp, run_check=False),
+                DTensor.from_local(gold, mesh, bp, run_check=False))
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,

@@ -4,11 +4,18 @@
         --requests 8 --trace burst --prompt-len 8 --gen 8 --budget-kb 24
 
 Runs on the CUDA card unless ``--device cpu`` is given.  The model is the
-reduced smoke variant unless ``--full-width`` is given.
+reduced smoke variant unless ``--full-width`` is given.  Under
+``torchrun`` (a world of more than one rank) it starts the world and the
+engine serves on the host mesh, as the reference's does on a host of
+several devices:
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.serving.cli \
+        --device cpu --budget-kb 24
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 from ..core.engine import MemoryEngine
 from ..core.plan import MachineProfile
@@ -38,6 +45,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ..device import resolve_device
+        from ..launch.mesh import init_world
+        init_world(resolve_device(args.device))
     eng = ServingEngine(args.arch, reduced=args.reduced,
                         max_sequences=args.max_sequences,
                         max_len=args.prompt_len + args.gen, seed=args.seed,

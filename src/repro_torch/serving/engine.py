@@ -31,6 +31,19 @@ every cache leaf through the hand-written kernels of
 for Jamba's 30), which read and write the leaves in place (the JAX engine
 moves each leaf's slot axis to the front, a copy of the leaf, to make a
 row pool).
+
+Under a mesh (``rules``, or a default process group of more than one
+rank, over which the engine builds the reference's ``MeshRules(
+make_host_mesh(), cfg=cfg)``) the parameters are sharded by their axes,
+the cache is placed by ``api.cache_axes()`` (slots over the data axes,
+positions over ``"model"``) and the decode step is
+``build_serve_step(api, rules=rules)``.  Every save, restore and splice
+moves each rank's own pieces: the slots its data shard holds, the
+positions its ``"model"`` shard holds, through the same kernels on the
+local tensors, into host shadows of its own.  The byte counts are those
+of the whole cache, so the session's decisions, its trace and every
+transfer's bytes are the meshless engine's; greedy tokens come from the
+gathered logits.
 """
 
 from __future__ import annotations
@@ -45,10 +58,11 @@ import torch
 from ..configs import get_config
 from ..core.engine import MemoryEngine
 from ..core.plan import MachineProfile
-from ..device import resolve_device
+from ..device import is_dtensor, resolve_device
 from ..kernels.kv_block_copy import (MAX_LEAVES, kv_block_gather,
                                      kv_block_scatter)
-from ..launch.steps import build_serve_step
+from ..launch.sharding import shard_params
+from ..launch.steps import build_serve_step, shard_cache
 from ..models.registry import get_model
 from .residency import SeqView, build_horizon
 from .session import SeqState, ServeHooks, ServeReport, ServeSession
@@ -115,6 +129,34 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _local(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """A cache leaf's local tensor (a DTensor's shard, written in place
+    through it) and the global index of its first element on each axis."""
+    if not is_dtensor(t):
+        return t, (0,) * t.dim()
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    off = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                t.placements)[1]
+    return t.to_local(), tuple(off)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _default_rules(cfg):
+    """The reference's engine rules: ``MeshRules(make_host_mesh(),
+    cfg=cfg)`` over a default process group of more than one rank; None
+    without one (a world of one serves meshless, as the launcher)."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    from ..launch.mesh import make_host_mesh
+    from ..launch.sharding import MeshRules
+    return MeshRules(make_host_mesh(), cfg=cfg)
+
+
 @dataclasses.dataclass
 class PrefillResult:
     """A prefilled prompt: its single-slot cache, ready to splice in."""
@@ -131,9 +173,12 @@ class ServingEngine:
 
     def __init__(self, arch: str = "tinyllama-1.1b", *, reduced: bool = True,
                  max_sequences: int = 4, max_len: int = 64, seed: int = 0,
-                 device=None, n_layers: Optional[int] = None):
+                 device=None, n_layers: Optional[int] = None, rules=None):
         """``n_layers`` cuts the model's depth to that many layers (the
-        width stays the config's); None keeps the config's depth."""
+        width stays the config's); None keeps the config's depth.
+        ``rules`` (``launch.sharding.MeshRules``) serves on their mesh;
+        without them a default process group of more than one rank gets
+        the host mesh's."""
         self.device = resolve_device(device)
         cfg = get_config(arch)
         if reduced:
@@ -150,10 +195,13 @@ class ServingEngine:
         self.api = get_model(cfg, self.device)
         self.max_sequences = int(max_sequences)
         self.max_len = int(max_len)
+        self.rules = rules if rules is not None else _default_rules(cfg)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = self.api.init(gen)
-        self.cache = self.api.init_cache(self.max_sequences, self.max_len)
-        self._step = build_serve_step(self.api)
+        self.cache = self._new_cache(self.max_sequences)
+        if self.rules is not None:
+            shard_params(self.params, self.rules)
+        self._step = build_serve_step(self.api, rules=self.rules)
         self._axes = _cache_leaf_axes(self.api, self.max_sequences,
                                       self.max_len)
         # per-token-per-sequence cache bytes, from meta shapes only
@@ -179,23 +227,56 @@ class ServingEngine:
 
     # -- cache slicing --------------------------------------------------
 
+    def _new_cache(self, batch: int):
+        """An empty cache of ``batch`` slots, placed by the rules."""
+        cache = self.api.init_cache(batch, self.max_len)
+        if self.rules is None:
+            return cache
+        return shard_cache(self.api, self.rules, cache)
+
     def _leaves(self) -> List[torch.Tensor]:
         return tree_leaves(self.cache)
 
+    def _row_bytes(self, i: int, pos: int) -> int:
+        """Bytes of one slot's first ``pos`` positions of leaf ``i`` in the
+        whole cache (what a meshless engine's shadow of it holds)."""
+        leaf, spec = self._leaves()[i], self._axes[i]
+        n = leaf.element_size()
+        for ax, size in enumerate(leaf.shape):
+            if ax != spec.batch:
+                n *= pos if ax == spec.length else size
+        return n
+
+    def _held(self, i: int, slot: int, pos: int):
+        """This rank's piece of slot ``slot``'s first ``pos`` positions of
+        leaf ``i``: (its local tensor, the slot's local index or None when
+        another rank holds the slot, the positions held here: a prefix of
+        the local position axis)."""
+        local, off = _local(self._leaves()[i])
+        spec = self._axes[i]
+        k = slot - off[spec.batch]
+        if not 0 <= k < local.shape[spec.batch]:
+            k = None
+        n = None
+        if spec.length is not None:
+            n = min(max(pos - off[spec.length], 0), local.shape[spec.length])
+        return local, k, n
+
     def _save_slot(self, s: SeqState) -> int:
-        """Shadow-copy a slot's occupied cache region to host.  Returns
-        bytes copied; no-op if already shadowed."""
+        """Shadow-copy a slot's occupied cache region to host (this rank's
+        pieces of it).  Returns bytes copied (in the whole cache); no-op
+        if already shadowed."""
         if s.rid in self._shadow:
             return 0
         saved: Dict[int, torch.Tensor] = {}
         nbytes = 0
-        for i, (leaf, spec) in enumerate(zip(self._leaves(), self._axes)):
-            if spec.batch is None:
-                continue
-            idx = _slot_index(spec, leaf.ndim, s.slot, 0, s.pos)
-            arr = _to_host(leaf[idx])
-            saved[i] = arr
-            nbytes += _nbytes(arr)
+        for i in self._slotted()[0]:
+            local, k, n = self._held(i, s.slot, s.pos)
+            if k is not None:
+                spec = self._axes[i]
+                saved[i] = _to_host(local[_slot_index(spec, local.ndim, k,
+                                                      0, n)])
+            nbytes += self._row_bytes(i, s.pos)
         self._shadow[s.rid] = saved
         return nbytes
 
@@ -205,13 +286,13 @@ class ServingEngine:
         saved = self._shadow.pop(s.rid, None)
         if saved is None:
             return 0
-        leaves = self._leaves()
         nbytes = 0
-        for i, arr in saved.items():
-            spec = self._axes[i]
-            idx = _slot_index(spec, leaves[i].ndim, s.slot, 0, s.pos)
-            leaves[i][idx].copy_(arr)
-            nbytes += _nbytes(arr)
+        for i in self._slotted()[0]:
+            local, k, n = self._held(i, s.slot, s.pos)
+            if k is not None:
+                spec = self._axes[i]
+                local[_slot_index(spec, local.ndim, k, 0, n)].copy_(saved[i])
+            nbytes += self._row_bytes(i, s.pos)
         return nbytes
 
     def _reduced_axis(self, spec: _LeafAxes) -> Optional[int]:
@@ -222,13 +303,21 @@ class ServingEngine:
         return spec.length - (1 if spec.batch < spec.length else 0)
 
     def _slotted(self) -> Tuple[List[int], List[torch.Tensor], List[int]]:
-        """The cache leaves that hold a slot axis: their tree indices, the
-        leaves, and their slot axes."""
+        """The cache leaves that hold a slot axis: their tree indices,
+        their local tensors, and their slot axes."""
         ids = [i for i, spec in enumerate(self._axes)
                if spec.batch is not None]
         leaves = self._leaves()
-        return ids, [leaves[i] for i in ids], [self._axes[i].batch
-                                               for i in ids]
+        return ids, [_local(leaves[i])[0] for i in ids], [
+            self._axes[i].batch for i in ids]
+
+    def _local_slots(self, states: List[SeqState]):
+        """The states whose slots this rank holds, and those slots' local
+        indices (every slotted leaf splits its slots alike)."""
+        i = self._slotted()[0][0]
+        held = [(s, self._held(i, s.slot, 0)[1]) for s in states]
+        held = [(s, k) for s, k in held if k is not None]
+        return [s for s, _ in held], [k for _, k in held]
 
     @staticmethod
     def _groups(leaves: List[torch.Tensor], axes: List[int]):
@@ -252,62 +341,60 @@ class ServingEngine:
     def _save_slots(self, states: List[SeqState]) -> int:
         """Batched shadow save: one ``kv_block_gather`` launch per group of
         up to ``MAX_LEAVES`` cache leaves moves every slot's row of those
-        leaves at once, read in place from the cache, then per-state
-        occupied prefixes are sliced out in the per-slot shadow format (so
-        either restore path can consume them).  Returns bytes copied."""
+        leaves at once, read in place from the cache (this rank's slots,
+        its positions of them), then per-state occupied prefixes are
+        sliced out in the per-slot shadow format (so either restore path
+        can consume them).  Returns bytes copied (in the whole cache)."""
         todo = [s for s in states if s.rid not in self._shadow]
         if not todo:
             return 0
         if len(todo) == 1:
             return self._save_slot(todo[0])
         ids, leaves, axes = self._slotted()
-        gathered = self._gather(leaves, [s.slot for s in todo], axes)
+        mine, slots = self._local_slots(todo)
         shadows: Dict[str, Dict[int, torch.Tensor]] = {s.rid: {} for s in todo}
-        nbytes = 0
-        for i, rows in zip(ids, gathered):
-            red = self._reduced_axis(self._axes[i])
-            for k, s in enumerate(todo):
-                row = rows[k]
-                if red is not None:
-                    row = row.narrow(red, 0, s.pos)
-                arr = _to_host(row)
-                shadows[s.rid][i] = arr
-                nbytes += _nbytes(arr)
+        if mine:
+            gathered = self._gather(leaves, slots, axes)
+            for i, rows in zip(ids, gathered):
+                red = self._reduced_axis(self._axes[i])
+                for k, s in enumerate(mine):
+                    row = rows[k]
+                    if red is not None:
+                        row = row.narrow(red, 0, self._held(i, s.slot,
+                                                            s.pos)[2])
+                    shadows[s.rid][i] = _to_host(row)
         for s in todo:
             self._shadow[s.rid] = shadows[s.rid]
-        return nbytes
+        return sum(self._row_bytes(i, s.pos) for s in todo for i in ids)
 
     def _restore_slots(self, states: List[SeqState]) -> int:
         """Batched shadow restore: gather the cohort's current rows of
         every cache leaf (one launch per group of leaves), patch each
         occupied prefix from its shadow, and scatter the rows back into the
-        cache (one launch per group).
-        Suffix regions round-trip their own bytes, so the result is
-        bit-identical to per-slot ``_restore_slot`` calls.  Returns bytes
-        written."""
+        cache (one launch per group); under a mesh, of this rank's slots
+        and positions.  Suffix regions round-trip their own bytes, so the
+        result is bit-identical to per-slot ``_restore_slot`` calls.
+        Returns bytes written (in the whole cache)."""
         todo = [s for s in states if s.rid in self._shadow]
         if not todo:
             return 0
         if len(todo) == 1:
             return self._restore_slot(todo[0])
         ids, leaves, axes = self._slotted()
-        slots = [s.slot for s in todo]
-        gathered = self._gather(leaves, slots, axes)
-        nbytes = 0
-        for i, rows in zip(ids, gathered):
-            red = self._reduced_axis(self._axes[i])
-            for k, s in enumerate(todo):
-                arr = self._shadow[s.rid].get(i)
-                if arr is None:
-                    continue
-                nbytes += _nbytes(arr)
-                dst = rows[k] if red is None else rows[k].narrow(red, 0,
-                                                                 s.pos)
-                dst.copy_(arr)
-        self._scatter(leaves, slots, gathered, axes)
+        mine, slots = self._local_slots(todo)
+        if mine:
+            gathered = self._gather(leaves, slots, axes)
+            for i, rows in zip(ids, gathered):
+                red = self._reduced_axis(self._axes[i])
+                for k, s in enumerate(mine):
+                    arr = self._shadow[s.rid][i]
+                    dst = rows[k] if red is None else rows[k].narrow(
+                        red, 0, arr.shape[red])
+                    dst.copy_(arr)
+            self._scatter(leaves, slots, gathered, axes)
         for s in todo:
             self._shadow.pop(s.rid, None)
-        return nbytes
+        return sum(self._row_bytes(i, s.pos) for s in todo for i in ids)
 
     def _xfer(self, fn):
         if self._channel is not None:
@@ -323,13 +410,13 @@ class ServingEngine:
         """Run one prompt through a fresh single-slot cache (the compute
         burst); the last position's logits give the first sampled token."""
         prompt = np.asarray(prompt, np.int32)
-        cache = self.api.init_cache(1, self.max_len)
+        cache = self._new_cache(1)
         logits = None
         for i in range(len(prompt)):
             logits, cache = self._step(self.params, cache,
                                        self._tokens(prompt[i:i + 1][None, :]),
                                        i)
-        first = int(torch.argmax(logits[0, -1]))
+        first = int(torch.argmax(_whole(logits)[0, -1]))
         return PrefillResult(rid=rid, prompt=prompt, prompt_len=len(prompt),
                              first_token=first, cache=cache)
 
@@ -338,13 +425,19 @@ class ServingEngine:
         """Splice a prefilled sequence into the shared cache at ``slot``."""
         src_axes = _cache_leaf_axes(self.api, 1, self.max_len)
         src_leaves = tree_leaves(pr.cache)
-        for leaf, spec, src, sspec in zip(self._leaves(), self._axes,
-                                          src_leaves, src_axes):
-            if spec.batch is None:
+        for i in self._slotted()[0]:
+            spec, sspec = self._axes[i], src_axes[i]
+            local, k, n = self._held(i, slot, pr.prompt_len)
+            if k is None:
                 continue
-            dst = _slot_index(spec, leaf.ndim, slot, 0, pr.prompt_len)
-            srcidx = _slot_index(sspec, src.ndim, 0, 0, pr.prompt_len)
-            leaf[dst] = src[srcidx]
+            src, soff = _local(src_leaves[i])
+            # both place their positions alike (one max_len, one rule)
+            if spec.length is not None and soff[sspec.length] != _local(
+                    self._leaves()[i])[1][spec.length]:
+                raise ValueError("the prefill cache's positions are placed "
+                                 "unlike the shared cache's")
+            local[_slot_index(spec, local.ndim, k, 0, n)] = src[
+                _slot_index(sspec, src.ndim, 0, 0, n)]
         self._tok[slot, 0] = pr.first_token
         self._outputs.setdefault(pr.rid, []).append(pr.first_token)
         if state is None:
@@ -376,7 +469,7 @@ class ServingEngine:
             idx = start_pos + k
             logits, self.cache = self._step(self.params, self.cache,
                                             self._tokens(self._tok), idx)
-            nxt = torch.argmax(logits[:, -1], dim=-1).to(
+            nxt = torch.argmax(_whole(logits)[:, -1], dim=-1).to(
                 torch.int32).cpu().numpy()
             for s in cohort:
                 self._tok[s.slot, 0] = nxt[s.slot]

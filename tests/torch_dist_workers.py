@@ -415,6 +415,206 @@ def check_sharded_decode(rank, d):
 
 
 # ----------------------------------------------------------------------
+# the sharded steps as the reference shards them (test_torch_sharded_gaps)
+# ----------------------------------------------------------------------
+def _gaps(d):
+    with open(os.path.join(d, "gaps.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _counting(owner, name, calls):
+    """Wrap ``owner.name`` to count its calls in ``calls[name]``."""
+    fn = getattr(owner, name)
+
+    def spy(*a, **k):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*a, **k)
+    setattr(owner, name, spy)
+    return fn
+
+
+def check_gaps_ce(rank, d):
+    """The CE loss under the rules on (2, 2) and (4, 1): reduced
+    TinyLlama's logits with masked labels and a z-loss (loss, d logits),
+    and reduced Gemma's tied table through the fused chunked loss (loss,
+    d x, d table); the vocab-parallel function's calls counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshRules, shard_params, use_rules
+    from repro_torch.models import layers
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    ref = _gaps(d)["ce"]
+    cfg = get_config(ARCH).reduced()
+    gcfg = get_config("gemma-2b").reduced()
+    out = {}
+    for shape in ((2, 2), (4, 1)):
+        tag = f"{shape[0]}x{shape[1]}"
+        rules = MeshRules(make_mesh(shape, ("data", "model")), cfg=cfg)
+        calls = {}
+        fn = _counting(layers._VocabParallelLseGold, "apply", calls)
+        try:
+            lg = distribute_tensor(
+                torch.from_numpy(ref["logits"]), rules.mesh,
+                rules.placements(("dp", None, "tp"))).requires_grad_(True)
+            with use_rules(rules), implicit_replication():
+                loss = layers.softmax_cross_entropy(
+                    lg, torch.from_numpy(ref["labels"]), z_loss=ref["z"])
+                (g,) = torch.autograd.grad(loss, [lg])
+            out[tag + ":loss"], out[tag + ":g"] = _np(loss), _np(g)
+            out[tag + ":placements"] = np.array(str(lg.placements))
+            grules = MeshRules(rules.mesh, cfg=gcfg)
+            emb = layers.Embedding(gcfg.padded_vocab, gcfg.d_model, True,
+                                   dtype=torch.float32, device="meta")
+            emb.load_state_dict({"tok": torch.from_numpy(ref["tok"])},
+                                strict=True, assign=True)
+            shard_params(emb, grules)
+            emb.tok.requires_grad_(True)
+            x = distribute_tensor(
+                torch.from_numpy(ref["x"]), rules.mesh,
+                grules.placements(("dp", None, None))).requires_grad_(True)
+            with use_rules(grules), implicit_replication():
+                tl = layers.fused_unembed_cross_entropy(
+                    emb, x, torch.from_numpy(ref["tied_labels"]), True,
+                    chunk=ref["chunk"])
+                gx, gt = torch.autograd.grad(tl, [x, emb.tok])
+            out[tag + ":tied_loss"] = _np(tl)
+            out[tag + ":tied_gx"], out[tag + ":tied_gt"] = _np(gx), _np(gt)
+        finally:
+            layers._VocabParallelLseGold.apply = fn
+        out[tag + ":calls"] = np.array(calls.get("apply", 0))
+    _save(d, "gaps_ce", rank, **out)
+
+
+def check_gaps_moe(rank, d):
+    """The scatter MoE on the data shards of the tokens, on (2, 2) and
+    (4, 1), for each of the reference's cases (nothing dropped, rows
+    dropped, a batch the data axes do not divide): the output, the aux
+    loss and the gradients of ``sum(y * dy) + aux`` with respect to x and
+    every weight; with the collectives it made counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshRules, shard_params, use_rules
+    from repro_torch.models import moe
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    ref = _gaps(d)["moe"]
+    cfg = get_config(MOE_ARCH).reduced()
+    out = {}
+    for name, case in ref["cases"].items():
+        kw = dict(top_k=cfg.top_k, n_experts=cfg.n_experts,
+                  capacity_factor=case["cf"], act=cfg.mlp_act)
+        for shape in ((2, 2), (4, 1)):
+            tag = f"{name}:{shape[0]}x{shape[1]}"
+            rules = MeshRules(make_mesh(shape, ("data", "model")), cfg=cfg)
+            p = moe.MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff,
+                        cfg.mlp_act, cfg.n_shared_experts,
+                        dtype=torch.float32, device="meta")
+            p.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in ref["params"].items()},
+                              strict=True, assign=True)
+            shard_params(p, rules)
+            for w in p.parameters():
+                w.requires_grad_(True)
+            x = distribute_tensor(
+                torch.from_numpy(case["x"]), rules.mesh,
+                rules.placements(("dp", None, None)) if
+                case["x"].shape[0] % shape[0] == 0 else
+                rules.replicated().placements).requires_grad_(True)
+            calls = {}
+            spies = {k: _counting(funcol, k, calls) for k in (
+                "reduce_scatter_tensor_autograd",
+                "all_gather_tensor_autograd")}
+            try:
+                with use_rules(rules), implicit_replication():
+                    y, aux = moe.moe_apply(p, x, dataclasses.replace(
+                        cfg, capacity_factor=case["cf"]))
+                    loss = (y * torch.from_numpy(case["dy"])).sum() + aux
+                    grads = torch.autograd.grad(loss, [x]
+                                                + list(p.parameters()))
+            finally:
+                for k, fn in spies.items():
+                    setattr(funcol, k, fn)
+            out[tag + ":y"], out[tag + ":aux"] = _np(y), _np(aux)
+            out[tag + ":gx"] = _np(grads[0])
+            for (k, _), g in zip(p.named_parameters(), grads[1:]):
+                out[f"{tag}:g:{k}"] = _np(g)
+            out[tag + ":collectives"] = np.array(sum(calls.values()))
+    # moe_apply_a2a's aux loss and its gradients, the nothing-dropped input
+    kw = dict(top_k=cfg.top_k, n_experts=cfg.n_experts,
+              capacity_factor=8.0, act=cfg.mlp_act)
+    for shape in ((2, 2), (1, 4)):
+        tag = f"a2a:{shape[0]}x{shape[1]}"
+        rules = MeshRules(make_mesh(shape, ("data", "model")), cfg=cfg)
+        p = moe.MoE(cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.mlp_act,
+                    cfg.n_shared_experts, dtype=torch.float32, device="meta")
+        p.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in ref["params"].items()},
+                          strict=True, assign=True)
+        shard_params(p, rules)
+        for w in p.parameters():
+            w.requires_grad_(True)
+        x = distribute_tensor(torch.from_numpy(ref["cases"]["nodrop"]["x"]),
+                              rules.mesh, rules.replicated().placements)
+        with use_rules(rules), implicit_replication():
+            _, aux = moe.moe_apply_a2a(p, x, **kw)
+            grads = torch.autograd.grad(aux, list(p.parameters()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        out[tag + ":aux"] = _np(aux)
+        for (k, _), g in zip(p.named_parameters(), grads):
+            out[f"{tag}:g:{k}"] = _np(g)
+    _save(d, "gaps_moe", rank, **out)
+
+
+def check_gaps_engine(rank, d):
+    """``ServingEngine`` in a world of four ranks (the host mesh, (2, 2))
+    with the reference's weights and prompts, serving its budgeted trace
+    per-slot and batched: the tokens, the decision trace, each transfer's
+    bytes, the report; the KV wrappers' calls counted."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.core.engine import MemoryEngine
+    from repro_torch.core.plan import MachineProfile
+    from repro_torch.serving import ServingEngine, make_trace
+    from repro_torch.serving import engine as serving_engine
+    ref = _gaps(d)["engine"]
+    trace = make_trace(*ref["trace"][:2], **ref["trace"][2])
+    eng = ServingEngine(ARCH, max_sequences=ref["max_sequences"],
+                        max_len=ref["max_len"], seed=0, device="cpu")
+    eng.params = params_from_jax(ref["params"], eng.cfg, "cpu")
+    eng.prompt_for = lambda rid, n: ref["prompts"][(rid, n)]
+    out = {"mesh": np.array(tuple(eng.rules.mesh.shape)),
+           "cache_placements": np.array(sorted({
+               str(t.placements) for t in serving_engine.tree_leaves(
+                   eng.cache)}))}
+    xfer = eng._xfer
+    for bt in (False, True):
+        moved = []
+        eng._xfer = lambda fn: moved.append(xfer(fn)) or moved[-1]
+        calls = {}
+        spies = {k: _counting(serving_engine, k, calls)
+                 for k in ("kv_block_gather", "kv_block_scatter")}
+        try:
+            mem = MemoryEngine(MachineProfile(**ref["profile"]),
+                               capacity_bytes=ref["budget"], trace=True)
+            rep, toks = eng.serve(trace, budget_bytes=ref["budget"],
+                                  engine=mem, batch_transfers=bt)
+        finally:
+            for k, fn in spies.items():
+                setattr(serving_engine, k, fn)
+            eng._xfer = xfer
+        tag = "batched" if bt else "per_slot"
+        out[tag + ":tokens"] = np.array(repr(sorted(toks.items())))
+        out[tag + ":trace"] = np.array(repr(mem.trace.keys()))
+        out[tag + ":moved"] = np.array(moved)
+        out[tag + ":report"] = np.array(repr(sorted(
+            dataclasses.asdict(rep).items())))
+        out[tag + ":kv_calls"] = np.array(sum(calls.values()))
+    _save(d, "gaps_engine", rank, **out)
+
+
+# ----------------------------------------------------------------------
 # one rank
 # ----------------------------------------------------------------------
 def check_one_device(rank, d):
@@ -482,6 +682,7 @@ GROUPS = {
               check_elastic, check_launcher, check_restart),
     "world1": (check_one_device,),
     "decode4": (check_sharded_decode,),
+    "gaps4": (check_gaps_ce, check_gaps_moe, check_gaps_engine),
 }
 
 
