@@ -221,8 +221,14 @@ Moonlight-16B-A3B and whisper-base (bf16, random weights from seed 0):
    its own quantization); ``reshard_state`` onto a second (1, 1) mesh and
    a checkpoint saved on the mesh restored into a DTensor template, both
    bit-identical; and ``launch.train.main --full --mesh 1,1`` for 3
-   steps.  The wall ms of the prefill and the train step, meshless and
-   under the mesh, are printed.  In the same process, ``moe_mesh``:
+   steps.  Also two train steps with the moments in pinned
+   host memory under the mesh (``HostShard``s placed by
+   ``opt_state_shardings(offload=True)``, pinned after each step) and
+   two meshless ones, every parameter and moment hash-equal to the
+   on-card mesh steps, the allocator's peak lower than the on-card mesh
+   step's by at least 0.8 x ``offloaded_bytes``.  The wall ms of the
+   prefill and the train step, meshless and under the mesh, on the card
+   and with the moments on the host, are printed.  In the same process, ``moe_mesh``:
    full-width Moonlight-16B-A3B at MOE_TRAIN_LAYERS of its 48 layers,
    whose scatter MoE under the rules routes the data shards of the
    tokens (``models.moe._scatter_on_shards``): a bf16 prefill (B 4 x
@@ -320,13 +326,14 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import (init_world, make_host_mesh,  # noqa: E402
                                      make_mesh)
-from repro_torch.launch.sharding import (MeshRules,  # noqa: E402
-                                         shard_params)
+from repro_torch.launch.sharding import (HostShard,  # noqa: E402
+                                         MeshRules, Sharding, shard_params)
 from repro_torch.launch.steps import (TrainStepConfig,  # noqa: E402
                                      build_functional_train_step,
                                      build_prefill_step, build_serve_step,
                                      build_train_step, offloaded_bytes,
-                                     opt_state_for, opt_state_to_host)
+                                     opt_state_for, opt_state_shardings,
+                                     opt_state_to_host)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import attention_block  # noqa: E402
@@ -5081,7 +5088,18 @@ DIST_LAUNCHER_STEPS = 3
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor, a ``HostShard``'s host tensor, or ``t``."""
+    if isinstance(t, HostShard):
+        return t.local
     return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _moments_pinned(opt, dev: str) -> bool:
+    """Whether every moment is a ``HostShard`` whose host tensor is pinned
+    (on the CPU: a plain host tensor)."""
+    return all(isinstance(t, HostShard) and (dev != "cuda"
+                                             or t.local.is_pinned())
+               for t in pytree.tree_leaves((opt.mu, opt.nu)))
 
 
 def _named_host(params, opt) -> dict:
@@ -5095,15 +5113,30 @@ def _named_host(params, opt) -> dict:
     return out
 
 
-def _two_steps(api, params, batch, rules, dev: str) -> dict:
-    """Two train steps from ``params`` (in place) with a fresh AdamW state:
-    the losses, each step's wall ms, the allocator's peak over the steps
-    and host copies of the parameters and moments after them."""
-    step = build_train_step(api, TrainStepConfig(), rules=rules)
+def _two_steps(api, params, batch, rules, dev: str, offload: bool = False,
+               keep: bool = True) -> dict:
+    """Two train steps from ``params`` (in place) with a fresh AdamW state,
+    with ``offload`` its moments in host memory from the start (under
+    ``rules``, host shards placed by ``opt_state_shardings``): the
+    losses, each step's wall ms, the allocator's peak over the steps,
+    ``card_digest`` of each parameter and moment after them and, with
+    ``keep``, host copies of them; with ``offload``, whether the moments
+    were pinned host shards after each step (under ``rules``) and
+    ``offloaded_bytes``."""
+    step = build_train_step(api, TrainStepConfig(offload_opt_state=offload),
+                            rules=rules)
     if rules is not None:
         shard_params(params, rules)
     opt = opt_state_for(params)
-    losses, ms = [], []
+    if offload:
+        opt = opt_state_to_host(opt, None if rules is None else
+                                opt_state_shardings(rules, {
+                                    k: Sharding.of(p) for k, p in
+                                    params.named_parameters()},
+                                    offload=True))
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    losses, ms, pinned = [], [], []
     if dev == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5114,9 +5147,17 @@ def _two_steps(api, params, batch, rules, dev: str) -> dict:
             torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
+        if offload and rules is not None:
+            pinned.append(_moments_pinned(opt, dev))
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
-    return {"losses": losses, "step_ms": ms, "max_memory_allocated": peak,
-            "state": _named_host(params, opt)}
+    out = {"losses": losses, "step_ms": ms, "max_memory_allocated": peak,
+           "digests": _leaf_digests(params, opt)}
+    if keep:
+        out["state"] = _named_host(params, opt)
+    if offload:
+        out["pinned"] = pinned
+        out["offloaded_bytes"] = offloaded_bytes(opt)
+    return out
 
 
 def distribution(device: str = "cuda", cfg=None,
@@ -5175,13 +5216,25 @@ def distribution(device: str = "cuda", cfg=None,
                              "meshless one bit for bit")
     del want, got, plain_params, mesh_params, step, plain_step
 
-    # two train steps each way, one state on the card at a time
+    # two train steps each way, one state on the card at a time: meshless,
+    # the moments on the host meshless and under the rules, then under the
+    # rules on the card (last: the elastic checks take its parameters)
     api = get_model(cfg, dev)
     b, s = train_shape
     tbatch = api.input_specs(ShapeSpec("smoke_train", s, b, "train"),
                              abstract=False, seed=0)
     params = api.init(gen())
     plain = _two_steps(api, params, tbatch, None, dev)
+    runs = {}
+    t_host = time.perf_counter()
+    for tag, r in (("meshless_host", None), ("mesh_host", rules)):
+        del params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        params = api.init(gen())
+        runs[tag] = _two_steps(api, params, tbatch, r, dev, offload=True,
+                               keep=False)
+    host_s = time.perf_counter() - t_host
     del params
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -5201,7 +5254,41 @@ def distribution(device: str = "cuda", cfg=None,
             1 + MESH_MEMORY_TOL) * plain["max_memory_allocated"]:
         raise AssertionError("the steps under the mesh allocated more than "
                              f"{1 + MESH_MEMORY_TOL} x the meshless ones")
-    del plain, sharded
+
+    # the moments in pinned host memory under the rules: host shards, bit
+    # for bit the steps with them on the card and the meshless host steps
+    host, mhost = runs["mesh_host"], runs["meshless_host"]
+    against = {tag: [k for k, h in r["digests"].items()
+                     if host["digests"].get(k) != h]
+               + sorted(set(host["digests"]) ^ set(r["digests"]))
+               for tag, r in (("mesh", sharded), ("meshless_host", mhost))}
+    saved = (sharded["max_memory_allocated"] - host["max_memory_allocated"]
+             if dev == "cuda" else None)
+    rec["host_state"] = {
+        **{tag: {"losses": r["losses"], "step_ms": r["step_ms"],
+                 "max_memory_allocated": r["max_memory_allocated"]}
+           for tag, r in runs.items()},
+        "on_card_mesh_step_ms": sharded["step_ms"],
+        "pinned_host_shards": host["pinned"],
+        "offloaded_bytes": host["offloaded_bytes"],
+        "saved_bytes": saved, "leaves": len(host["digests"]),
+        "mismatched_leaves": against, "seconds": host_s}
+    log(f"[distribution] moments on the host under the mesh B={b} S={s}: "
+        + json.dumps(rec["host_state"]))
+    if any(against.values()) or not (
+            host["losses"] == sharded["losses"] == mhost["losses"]):
+        raise AssertionError("the steps with the moments on the host under "
+                             "the mesh are not the on-card mesh steps and "
+                             "the meshless host steps bit for bit: "
+                             f"{rec['host_state']}")
+    if len(host["pinned"]) != 2 or not all(host["pinned"]):
+        raise AssertionError("a moment under the mesh was not a pinned host "
+                             "shard between steps")
+    if dev == "cuda" and saved < 0.8 * host["offloaded_bytes"]:
+        raise AssertionError(
+            f"moments on the host under the mesh saved {saved} B of the "
+            f"card, less than 0.8 x {host['offloaded_bytes']} B")
+    del plain, sharded, runs, host, mhost
 
     # the compressed collective over the world: one rank's mean is its own
     # quantization
@@ -5301,11 +5388,13 @@ def card_digest(t: torch.Tensor) -> tuple:
 
 def _leaf_digests(params, opt) -> dict:
     """``card_digest`` of each parameter and moment (its local shard: on a
-    one-device mesh, the whole tensor), by name."""
+    one-device mesh, the whole tensor), by name, computed on the
+    parameters' device (a moment in host memory is copied there)."""
     out = {"p:" + k: card_digest(_local(p)) for k, p in
            params.named_parameters()}
+    dev = _local(next(params.parameters())).device
     for tag, tree in (("mu:", opt.mu), ("nu:", opt.nu)):
-        out.update({tag + k: card_digest(_local(t))
+        out.update({tag + k: card_digest(_local(t).to(dev))
                     for k, t in tree.items()})
     return out
 

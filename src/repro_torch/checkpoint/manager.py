@@ -34,7 +34,9 @@ write raises on every rank, and ``latest_step(template)`` and
 resumes from the same one.  ``restore(template=)`` into a DTensor leaf
 distributes the whole saved tensor onto that leaf's mesh and placements,
 so a state saved on one mesh restores onto another (the reference's
-elastic restore).  numpy has no
+elastic restore).  A ``HostShard`` leaf (moments in host memory on a mesh)
+is saved whole as a DTensor is, and restored by writing each rank's slice
+into the template's shard.  numpy has no
 bfloat16: a bf16 leaf is stored as its raw 16-bit words and its dtype in
 ``meta.json``, and comes back bit for bit.  ``zstandard`` is optional, as in the reference; a checkpoint written
 without it restores anywhere.
@@ -54,6 +56,7 @@ import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from ..device import is_dtensor
+from ..launch.sharding import HostShard
 
 try:
     import zstandard as _zstd
@@ -75,10 +78,15 @@ def _leaves(tree: Any) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
+def _sharded(t) -> bool:
+    """Whether ``t`` is a shard of a mesh: a DTensor or a ``HostShard``."""
+    return is_dtensor(t) or isinstance(t, HostShard)
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` as numpy (bf16 as its 16-bit words); of a
-    DTensor, its whole value."""
-    if is_dtensor(t):
+    DTensor or a ``HostShard``, its whole value."""
+    if _sharded(t):
         t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
@@ -96,9 +104,10 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _mesh_of(leaves: List[Tuple[str, torch.Tensor]]):
-    """The mesh of the first DTensor leaf, when it spans several ranks."""
+    """The mesh of the first DTensor or ``HostShard`` leaf, when it spans
+    several ranks."""
     for _, t in leaves:
-        if is_dtensor(t):
+        if _sharded(t):
             return t.device_mesh if t.device_mesh.size() > 1 else None
     return None
 
@@ -177,7 +186,7 @@ class CheckpointManager:
         if not _writes(mesh):
             # this rank takes part in the gathers; the first rank writes
             for _, t in leaves:
-                if is_dtensor(t):
+                if _sharded(t):
                     t.full_tensor()
             return mesh, None
         return mesh, [(path, _dtype_name(t), _to_numpy(t))
@@ -295,7 +304,9 @@ class CheckpointManager:
                         raise ValueError(
                             f"{path}: saved {dt}{list(src.shape)}, live "
                             f"{_dtype_name(t)}{list(t.shape)}")
-                    if is_dtensor(t):
+                    if isinstance(t, HostShard):
+                        t.load_(src)
+                    elif is_dtensor(t):
                         from torch.distributed.tensor import distribute_tensor
                         local = t.to_local()
                         local.copy_(distribute_tensor(

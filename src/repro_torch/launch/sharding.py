@@ -21,6 +21,12 @@ on each of them, the first mesh dimension the major one, as in the
 reference.  ``shardings_for`` replicates a dimension that its mesh extent
 does not divide: DTensor would shard it unevenly without complaint.
 
+A ``Sharding`` of memory kind ``"pinned_host"`` (the reference's
+``with_memory_kind``) places a tensor as a ``HostShard``: the rank's local
+shard in host memory with the mesh, placements, shape and stride of the
+DTensor it stands for (the optimizer moments between steps under
+``offload_opt_state``).
+
 ``constrain(x, logical)`` redistributes a DTensor activation (a plain
 tensor passes through); ``use_rules(rules)`` installs the rules for the
 model code's ``layers.constrain``.
@@ -39,15 +45,142 @@ from ..device import is_dtensor
 from .mesh import axis_names
 
 
+MEMORY_KINDS = ("device", "pinned_host")
+
+
 class Sharding(NamedTuple):
-    """A mesh and one placement per mesh dimension (the port's
-    ``NamedSharding``)."""
+    """A mesh, one placement per mesh dimension and a memory kind (the
+    port's ``NamedSharding``): ``"device"`` places a tensor as a DTensor,
+    ``"pinned_host"`` as a ``HostShard``."""
     mesh: Any
     placements: Tuple[Any, ...]
+    memory_kind: str = "device"
 
-    def distribute(self, t: torch.Tensor):
+    @classmethod
+    def of(cls, t) -> "Sharding":
+        """The sharding of a DTensor or a ``HostShard``."""
+        if isinstance(t, HostShard):
+            return t.sharding
+        return cls(t.device_mesh, tuple(t.placements))
+
+    def with_memory_kind(self, kind: str) -> "Sharding":
+        if kind not in MEMORY_KINDS:
+            raise ValueError(f"memory kind {kind!r}: one of {MEMORY_KINDS}")
+        return self._replace(memory_kind=kind)
+
+    def distribute(self, t):
+        """``t`` (a whole tensor that every rank holds, a DTensor or a
+        ``HostShard``) placed by this sharding."""
+        if self.memory_kind == "pinned_host":
+            return HostShard.place(t, self)
         from torch.distributed.tensor import distribute_tensor
         return distribute_tensor(t, self.mesh, self.placements)
+
+
+def _is_sharding(x) -> bool:
+    return isinstance(x, Sharding)
+
+
+def local_slice(whole: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``whole`` (a view) under ``placements`` on
+    ``mesh``: what ``distribute_tensor(whole, ..., src_data_rank=None)``
+    holds locally, sliced where ``whole`` lies."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, offset = compute_local_shape_and_global_offset(
+        whole.shape, mesh, placements)
+    return whole[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def host_empty(shape, dtype: torch.dtype, device_type: str) -> torch.Tensor:
+    """An empty host tensor for a shard of a mesh on ``device_type``:
+    pinned for a card (raises where there is none), plain for the CPU."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=device_type != "cpu")
+
+
+class HostShard:
+    """This rank's shard of a tensor on a device mesh, kept in host memory:
+    the port's array of memory kind ``pinned_host`` (DTensor has no memory
+    kind, and ``DTensor.from_local`` moves a host tensor to the mesh's
+    device).  ``local`` is pinned when the mesh is on a card and a plain
+    CPU tensor when it is on the CPU; ``device_mesh``, ``placements``,
+    ``shape`` and ``stride`` are the DTensor's it stands for.  It is not a
+    tensor, so no operator takes it for a whole replicated value:
+    ``fetch`` makes the shard a DTensor on the mesh's device, and
+    ``full_tensor`` gathers the whole value."""
+    __slots__ = ("local", "device_mesh", "placements", "shape", "_stride")
+
+    def __init__(self, local: torch.Tensor, device_mesh, placements,
+                 shape, stride):
+        self.local = local
+        self.device_mesh = device_mesh
+        self.placements = tuple(placements)
+        self.shape = torch.Size(shape)
+        self._stride = tuple(stride)
+
+    @classmethod
+    def place(cls, t, sharding: Sharding) -> "HostShard":
+        """``t`` (a whole tensor every rank holds, a DTensor or a
+        ``HostShard``) as this rank's shard under ``sharding``; a host
+        shard already so placed is returned as it is."""
+        mesh, placements = sharding.mesh, tuple(sharding.placements)
+        if isinstance(t, HostShard):
+            if t.device_mesh == mesh and t.placements == placements:
+                return t
+            t = t.full_tensor()
+        if is_dtensor(t):
+            if t.device_mesh != mesh or tuple(t.placements) != placements:
+                t = t.redistribute(mesh, placements)
+            shape, stride, local = t.shape, t.stride(), t.to_local()
+        else:
+            shape, stride = t.shape, t.stride()
+            local = local_slice(t, mesh, placements)
+        host = host_empty(local.shape, local.dtype, mesh.device_type)
+        host.copy_(local)
+        return cls(host, mesh, placements, shape, stride)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def sharding(self) -> Sharding:
+        return Sharding(self.device_mesh, self.placements, "pinned_host")
+
+    def numel(self) -> int:
+        return self.shape.numel()
+
+    def element_size(self) -> int:
+        return self.local.element_size()
+
+    def fetch(self, device=None):
+        """The shard as a DTensor on ``device`` (default: the mesh's), its
+        local tensor copied there without blocking (on the CPU, the host
+        tensor itself)."""
+        from torch.distributed.tensor import DTensor
+        if device is None:
+            device = torch.device(self.device_mesh.device_type)
+        return DTensor.from_local(
+            self.local.to(device, non_blocking=True), self.device_mesh,
+            self.placements, run_check=False, shape=self.shape,
+            stride=self._stride)
+
+    def full_tensor(self) -> torch.Tensor:
+        """The whole value on the mesh's device: a gather over the mesh,
+        which every rank of it makes together."""
+        return self.fetch().full_tensor()
+
+    def load_(self, whole: torch.Tensor) -> "HostShard":
+        """Write this rank's slice of ``whole`` into the shard."""
+        self.local.copy_(local_slice(whole, self.device_mesh,
+                                     self.placements))
+        return self
+
+    def __repr__(self) -> str:
+        return (f"HostShard(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"local={tuple(self.local.shape)}, "
+                f"placements={self.placements})")
 
 
 def _is_axes_leaf(x) -> bool:

@@ -46,8 +46,14 @@ on the rank whose sequence shard holds ``index``; its attention combines
 the ranks' partial softmax sums (``models.attention``).  On a one-device
 mesh the decode step runs on the local tensors of the parameters and of
 the cache (which may be DTensors: the serving engine places it), which
-are the whole ones, and returns the cache it was given.  Host-resident optimizer state under a mesh of more than one
-device raises ``NotImplementedError``.
+are the whole ones, and returns the cache it was given.
+
+With ``offload_opt_state`` under rules, on a mesh of any size, the (1, 1)
+one included, the moments and master copies are ``HostShard``s between
+steps, placed by ``opt_state_shardings(..., offload=True)``: each rank's
+shard of the leaf in pinned host memory (the reference's ``pinned_host``
+memory kind, under which XLA moves the shards), fetched by AdamW for the
+leaf's update and written back.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from ..optim.adam import (AdamState, adamw_init, adamw_step, adamw_update,
                           global_norm)
 from ..optim.compression import ef_compress_grads
 from ..device import is_dtensor
-from .sharding import MeshRules, local_params, shard_params, use_rules
+from .sharding import (HostShard, MeshRules, Sharding, _is_sharding,
+                       local_params, shard_params, use_rules)
 
 
 @dataclasses.dataclass
@@ -124,10 +131,6 @@ def build_train_step(api, tcfg: Optional[TrainStepConfig] = None, *,
     if tcfg.grad_compression not in (None, "int8"):
         raise ValueError(f"grad_compression={tcfg.grad_compression!r}: "
                          f"None or 'int8'")
-    if tcfg.offload_opt_state and _many_devices(rules):
-        raise NotImplementedError(
-            "offload_opt_state under a mesh of more than one device: the "
-            "host-resident moments are not DTensors yet")
 
     def loss_of(params, batch):
         return api.loss(params, batch, remat_policy=tcfg.remat_policy)
@@ -169,7 +172,10 @@ def build_train_step(api, tcfg: Optional[TrainStepConfig] = None, *,
         if tcfg.grad_compression == "int8":
             grads, opt_state = ef_compress_grads(grads, opt_state)
         if tcfg.offload_opt_state:
-            opt_state = opt_state_to_host(opt_state)
+            shardings = None if rules is None else opt_state_shardings(
+                rules, {k: Sharding.of(p) for k, p in named.items()},
+                use_master=opt_state.master != (), offload=True)
+            opt_state = opt_state_to_host(opt_state, shardings)
         with _under(rules):
             _, new_opt = adamw_update(
                 named, grads, opt_state, lr=tcfg.learning_rate,
@@ -303,19 +309,49 @@ def _meta_like(p: torch.Tensor) -> torch.Tensor:
     return torch.empty(p.shape, dtype=p.dtype, device="meta")
 
 
-def opt_state_to_host(opt_state: AdamState) -> AdamState:
-    """The state with its moments and master copies in pinned host memory
-    (``opt_state_placement``): a leaf already off the card stays as it
-    is; on the CPU nothing moves."""
-    def place(tree):
-        return {k: opt_state_placement(t, host=True) for k, t in tree.items()}
-    master = place(opt_state.master) if opt_state.master != () else ()
-    return opt_state._replace(mu=place(opt_state.mu), nu=place(opt_state.nu),
-                              master=master)
+def opt_state_shardings(rules: MeshRules, param_shardings, *,
+                        use_master: bool = False,
+                        offload: bool = False) -> AdamState:
+    """The reference's ``opt_state_shardings``: the moments (and master
+    copies) mirror ``param_shardings`` (a tree of ``Sharding``s, such as
+    ``rules.shardings_for(axes, params)`` or ``Sharding.of`` each DTensor
+    parameter), of memory kind ``"pinned_host"`` with ``offload``: the
+    TENSILE across-iteration decision.  ``step`` is replicated."""
+    kind = "pinned_host" if offload else "device"
+
+    def like():
+        return pytree.tree_map(lambda s: s.with_memory_kind(kind),
+                               param_shardings, is_leaf=_is_sharding)
+    return AdamState(step=rules.replicated(), mu=like(), nu=like(),
+                     master=like() if use_master else ())
+
+
+def opt_state_to_host(opt_state: AdamState,
+                      shardings: Optional[AdamState] = None) -> AdamState:
+    """The state with its moments and master copies in host memory between
+    steps.  A DTensor or ``HostShard`` leaf becomes a ``HostShard`` placed
+    by ``shardings`` (``opt_state_shardings(..., offload=True)``; without
+    them, by its own placements); one already so placed stays as it is.
+    A plain leaf on a card moves to pinned host memory
+    (``opt_state_placement``); on the CPU it stays where it is."""
+    def place(name, tree):
+        sh = None if shardings is None else getattr(shardings, name)
+
+        def leaf(k, t):
+            if is_dtensor(t) or isinstance(t, HostShard):
+                s = Sharding.of(t) if sh is None else sh[k]
+                return s.with_memory_kind("pinned_host").distribute(t)
+            return opt_state_placement(t, host=True)
+        return {k: leaf(k, t) for k, t in tree.items()}
+    master = place("master", opt_state.master) \
+        if opt_state.master != () else ()
+    return opt_state._replace(mu=place("mu", opt_state.mu),
+                              nu=place("nu", opt_state.nu), master=master)
 
 
 def offloaded_bytes(opt_state: AdamState) -> int:
     """Bytes the TENSILE plan parks on the host between steps (moments and
-    master copies)."""
+    master copies), each leaf by its global shape, as the reference counts
+    them: a ``HostShard`` as the whole tensor it is a shard of."""
     return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(
         (opt_state.mu, opt_state.nu, opt_state.master)))

@@ -14,9 +14,10 @@ residual of int8 gradient compression (``optim.compression``).
 
 Moments and master copies may live in pinned host memory between steps
 (``core.integration.opt_state_placement``, the paper's Fig. 1(c)
-across-iteration swap): ``adamw_update`` fetches each such leaf to its
-parameter's device for the leaf's update, writes it back, and returns once
-the host copies are written; the arithmetic runs on the same device either
+across-iteration swap; on a mesh, ``launch.sharding.HostShard``s):
+``adamw_update`` fetches each such leaf to its parameter's device for the
+leaf's update, writes it back, and returns once the host copies are
+written; the arithmetic runs on the same device either
 way, so the result is the same bit for bit.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..device import is_dtensor
+from ..launch.sharding import HostShard
 
 Tree = Mapping[str, torch.Tensor]
 
@@ -93,6 +95,16 @@ def _leaf(p, g, m, v, pm, scale, bc1, bc2, lr, b1, b2, eps, weight_decay,
     return new, m32, v32
 
 
+def _fetch(t, device: torch.device):
+    """``t`` on ``device`` (a ``HostShard`` as a DTensor of its shard) and
+    whether that is a copy: a leaf in host memory fetched to the card,
+    without blocking."""
+    if isinstance(t, HostShard):
+        return t.fetch(device), t.local.device != device
+    out = t.to(device, non_blocking=True)
+    return out, out is not t
+
+
 @torch.no_grad()
 def adamw_update(params: Tree, grads: Tree, state: AdamState, *,
                  lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
@@ -103,7 +115,9 @@ def adamw_update(params: Tree, grads: Tree, state: AdamState, *,
     ``state.master`` in place; returns ``(params, new_state)`` with the
     step advanced.  A moment or master leaf off its parameter's device
     (pinned host memory) is fetched for the leaf's update and written
-    back."""
+    back.  A ``HostShard`` leaf (a mesh's moments in host memory) is fetched
+as a DTensor of this rank's shard and its shard written back: no rank
+holds a whole moment."""
     step, scale, bc1, bc2 = _prologue(grads, state, b1, b2, grad_clip_norm)
     use_master = state.master != ()
     fetched = None
@@ -111,16 +125,19 @@ def adamw_update(params: Tree, grads: Tree, state: AdamState, *,
         kept = [state.mu[name], state.nu[name]]
         if use_master:
             kept.append(state.master[name])
-        m, v, pm = [t.to(p.device, non_blocking=True) for t in kept] + (
-            [] if use_master else [None])
-        if m is not kept[0]:
+        got = [_fetch(t, p.device) for t in kept]
+        m, v, pm = [t for t, _ in got] + ([] if use_master else [None])
+        copied = got[0][1]
+        if copied:
             fetched = p.device
         # a fetched moment is the leaf's scratch: no second copy on the card
         new, m32, v32 = _leaf(p, grads[name], m, v, pm, scale, bc1, bc2,
-                              lr, b1, b2, eps, weight_decay,
-                              scratch=m is not kept[0])
+                              lr, b1, b2, eps, weight_decay, scratch=copied)
         for dst, val in zip(kept, (m32, v32, new)):
-            dst.copy_(val, non_blocking=True)
+            if isinstance(dst, HostShard):
+                dst.local.copy_(val.to_local(), non_blocking=True)
+            else:
+                dst.copy_(val, non_blocking=True)
         p.copy_(new)
     if fetched is not None:
         # the host copies are the state: complete before anyone reads them

@@ -7,7 +7,8 @@ the training state must follow.  ``reshard_state`` moves every DTensor
 leaf onto the new mesh's placements: through the whole tensor where the
 meshes differ in size (every rank of the old mesh takes part in the
 gather; a rank outside a smaller new mesh holds nothing afterwards), by
-re-wrapping the local shards where they match.  With
+re-wrapping the local shards where they match.  A ``HostShard`` leaf
+(moments in host memory) stays one, placed on the new mesh.  With
 ``CheckpointManager.restore(template=)`` it also covers restarting on a
 new topology.
 
@@ -24,7 +25,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..device import is_dtensor
-from ..launch.sharding import MeshRules, _is_axes_leaf
+from ..launch.sharding import HostShard, MeshRules, _is_axes_leaf
 
 
 @dataclasses.dataclass
@@ -54,18 +55,25 @@ def _largest_pow2_divisor(n: int, cap: int) -> int:
     return t
 
 
-def _moved(x: torch.Tensor, sharding) -> Optional[torch.Tensor]:
-    """``x`` (a DTensor or a plain whole tensor) on ``sharding``; None for
-    a rank outside the new mesh."""
+def _moved(x, sharding):
+    """``x`` (a DTensor, a ``HostShard`` or a plain whole tensor) on
+    ``sharding``, a host shard with its memory kind; None for a rank
+    outside the new mesh."""
     from torch.distributed.tensor import DTensor, distribute_tensor
-    if sharding is not None and is_dtensor(x) \
+    host = isinstance(x, HostShard)
+    if sharding is not None and host:
+        sharding = sharding.with_memory_kind("pinned_host")
+    if sharding is not None and (is_dtensor(x) or host) \
             and torch.equal(x.device_mesh.mesh, sharding.mesh.mesh) \
             and tuple(x.placements) == tuple(sharding.placements):
-        return DTensor.from_local(x.to_local(), sharding.mesh,
-                                  sharding.placements, run_check=False)
-    whole = x.full_tensor() if is_dtensor(x) else x
+        return x if host else DTensor.from_local(
+            x.to_local(), sharding.mesh, sharding.placements,
+            run_check=False)
+    whole = x.full_tensor() if (is_dtensor(x) or host) else x
     if sharding is None:
         return None
+    if host:
+        return sharding.distribute(whole)
     return distribute_tensor(whole, sharding.mesh, sharding.placements,
                              src_data_rank=None)
 

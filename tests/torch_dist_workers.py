@@ -9,8 +9,8 @@ spawns WORLD processes over a ``FileStore`` in DIR; each runs the checks
 of GROUP (``mesh4`` on four ranks, ``world1`` on one, or check names
 joined by commas, ``train,psum``) and writes its
 results to ``DIR/<check>_r<rank>.npz``.  Inputs made by the JAX package's
-side (weights, batches, its outputs) are read from ``DIR/ref.pkl`` where a
-check needs them.  Nothing here imports JAX.
+side (weights, batches, its outputs) are read from ``DIR/ref.pkl`` (the
+``host4`` and ``host1`` groups: ``DIR/host.pkl``) where a check needs them.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -37,8 +37,11 @@ def _save(d, name, rank, **arrays):
 
 
 def _np(t):
+    """A numpy copy of ``t``; of a DTensor or a ``HostShard``, its whole
+    value (a gather over its mesh)."""
     from repro_torch.device import is_dtensor
-    if is_dtensor(t):
+    from repro_torch.launch.sharding import HostShard
+    if is_dtensor(t) or isinstance(t, HostShard):
         t = t.full_tensor()
     return t.detach().cpu().numpy()
 
@@ -87,7 +90,7 @@ def _two_steps(cfg, model, batch, rules=None, **tcfg_kw):
         opt = adamw_init(dict(model.named_parameters()),
                          grad_compression=True)
     else:
-        opt = opt_state_for(model)
+        opt = opt_state_for(model, use_master=tcfg.use_master)
     step = build_train_step(api, tcfg, rules=rules)
     losses = []
     for _ in range(2):
@@ -317,10 +320,11 @@ def check_launcher(rank, d):
     _save(d, "launcher", rank, rc=rc, log=np.array(buf.getvalue()))
 
 
-def _resilient_run(d, tag, fail_at):
+def _resilient_run(d, tag, fail_at, offload=False):
     """Five steps of reduced TinyLlama on (2, 2) through the restart loop,
-    as the launcher runs it (async checkpoints, here every 2 steps): the
-    losses and the final parameters."""
+    as the launcher runs it (async checkpoints, here every 2 steps), with
+    the moments in host memory when ``offload``: the result, the losses,
+    the final parameters and the final optimizer state."""
     from repro_torch.data.pipeline import (DataConfig, Prefetcher,
                                            TokenStream, to_device)
     from repro_torch.launch.mesh import make_mesh
@@ -334,26 +338,34 @@ def _resilient_run(d, tag, fail_at):
     api = get_model(cfg, "cpu")
     rules = MeshRules(make_mesh((2, 2), ("data", "model")), cfg=cfg)
     model = shard_params(api.init(torch.Generator().manual_seed(0)), rules)
-    step = build_train_step(api, TrainStepConfig(), rules=rules)
+    step = build_train_step(api, TrainStepConfig(offload_opt_state=offload),
+                            rules=rules)
     stream = TokenStream(DataConfig(seq_len=32, global_batch=4,
                                     vocab_size=cfg.vocab_size))
     prefetch = Prefetcher(stream, to_device=to_device(torch.device("cpu")))
+    last = []
+
+    def stepping(p, o, b):
+        p, o, m = step(p, o, b)
+        last[:] = [o]
+        return p, o, m
     try:
         result = resilient_train_loop(
-            step, (model, opt_state_for(model)), prefetch, 5,
+            stepping, (model, opt_state_for(model)), prefetch, 5,
             ft=FTConfig(ckpt_dir=os.path.join(d, tag), ckpt_every=2),
             data_stream=stream, fail_at=fail_at)
     finally:
         prefetch.close()
-    return result, [m["loss"] for m in result.metrics_history], model
+    return (result, [m["loss"] for m in result.metrics_history], model,
+            last[0])
 
 
 def check_restart(rank, d):
     """The restart loop on four ranks: a failure injected at step 3, right
     after step 2's asynchronous save (the first), against the same run
     without it."""
-    got, losses, model = _resilient_run(d, "restart_fail", {3: 1})
-    want, want_losses, plain = _resilient_run(d, "restart_plain", None)
+    got, losses, model, _ = _resilient_run(d, "restart_fail", {3: 1})
+    want, want_losses, plain, _ = _resilient_run(d, "restart_plain", None)
     _save(d, "restart", rank, restarts=got.restarts,
           final=got.final_step, losses=losses, want_losses=want_losses,
           **{"p:" + k: v for k, v in _flat_params(model).items()},
@@ -615,6 +627,178 @@ def check_gaps_engine(rank, d):
 
 
 # ----------------------------------------------------------------------
+# optimizer state in host memory under a mesh (test_torch_host_state)
+# ----------------------------------------------------------------------
+def _host(d):
+    with open(os.path.join(d, "host.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _opt_leaves(opt):
+    """``{"mu:" + name: leaf, ...}`` of the moments and master copies."""
+    return {f"{tree}:{k}": t for tree in ("mu", "nu", "master")
+            if getattr(opt, tree) != () for k, t in getattr(opt, tree).items()}
+
+
+def _host_runs(cfg, params, batch, mesh, master):
+    """Two steps from ``params`` (the reference's, as numpy) three ways:
+    meshless with the moments on the host, under the rules on ``mesh``
+    with them on the device and with them on the host.  The losses, the
+    whole parameters and state leaves, and each run's final state."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.sharding import MeshRules
+    out, opts = {}, {}
+    for run, on_mesh, off in (("meshless", False, True),
+                              ("device", True, False), ("host", True, True)):
+        model = params_from_jax(params, cfg, "cpu")
+        rules = MeshRules(mesh, cfg=cfg) if on_mesh else None
+        losses, opt = _two_steps(cfg, model, batch, rules=rules,
+                                 offload_opt_state=off, use_master=master)
+        out[run + ":loss"] = losses
+        out.update({f"{run}:p:{k}": v
+                    for k, v in _flat_params(model).items()})
+        out.update({f"{run}:{k}": _np(t)
+                    for k, t in _opt_leaves(opt).items()})
+        opts[run] = (model, opt)
+    return out, opts
+
+
+def check_host_state(rank, d):
+    """Reduced TinyLlama on (2, 2) and (1, 4), without and with fp32
+    master copies: two steps with the moments in host memory under the
+    rules, beside the same steps with them on the device and meshless
+    ones; each host leaf's type and local shape, and ``offloaded_bytes``.
+    On (2, 2) without masters, both final states resharded onto (1, 2)
+    over ranks 0 and 1."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import offloaded_bytes
+    from repro_torch.runtime.elastic import reshard_state
+    ref = _host(d)
+    cfg = _tiny_cfg()
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    out = {}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_mesh(shape, ("data", "model"))
+        for master in (False, True):
+            tag = f"{shape[0]}x{shape[1]}:{'master' if master else 'plain'}"
+            got, opts = _host_runs(cfg, ref["params"], batch, mesh, master)
+            out.update({f"{tag}:{k}": v for k, v in got.items()})
+            model, opt = opts["host"]
+            for k, t in _opt_leaves(opt).items():
+                out[f"{tag}:type:{k}"] = np.array(type(t).__name__)
+                out[f"{tag}:local:{k}"] = np.array(tuple(t.local.shape))
+            out[f"{tag}:offloaded"] = np.array(offloaded_bytes(opt))
+            out[f"{tag}:device_offloaded"] = np.array(
+                offloaded_bytes(opts["device"][1]))
+            if shape != (2, 2) or master:
+                continue
+            axes = model.named_param_axes()
+            mesh2 = make_mesh((1, 2), ("data", "model"))
+            for run in ("device", "host"):
+                opt = opts[run][1]
+                state = {"mu": opt.mu, "nu": opt.nu}
+                new, _ = reshard_state(
+                    state, {t: {k: axes[k] for k in opt.mu} for t in state},
+                    mesh2, cfg=cfg)
+                if mesh2 is None:
+                    out[f"reshard:{run}:none"] = np.array(all(
+                        t is None for tree in new.values()
+                        for t in tree.values()))
+                    continue
+                for tree, leaves in new.items():
+                    for k, t in leaves.items():
+                        key = f"reshard:{run}:{tree}:{k}"
+                        out[key + ":type"] = np.array(type(t).__name__)
+                        out[key + ":placements"] = np.array(str(t.placements))
+                        local = t.local if run == "host" else t.to_local()
+                        out[key + ":local"] = local.numpy()
+                        out[key + ":whole"] = _np(t)
+    _save(d, "host_state", rank, **out)
+
+
+def check_host_checkpoint(rank, d):
+    """Reduced TinyLlama on (2, 2) with the moments in host memory: a save
+    of (parameters, state) after step 1, then step 2; a restore of that
+    save into a template of other values whose state is host shards, then
+    step 2 again."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import MeshRules, Sharding, shard_params
+    from repro_torch.launch.steps import (TrainStepConfig, build_train_step,
+                                          opt_state_for, opt_state_shardings,
+                                          opt_state_to_host)
+    from repro_torch.models.registry import get_model
+    ref = _host(d)
+    cfg = _tiny_cfg()
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    api = get_model(cfg, "cpu")
+    rules = MeshRules(make_mesh((2, 2), ("data", "model")), cfg=cfg)
+    step = build_train_step(api, TrainStepConfig(offload_opt_state=True),
+                            rules=rules)
+    model = shard_params(params_from_jax(ref["params"], cfg, "cpu"), rules)
+    model, opt, _ = step(model, opt_state_for(model), batch)
+    mgr = CheckpointManager(os.path.join(d, "host_ckpt"))
+    mgr.save(1, (model, opt))
+    model, opt, m = step(model, opt, batch)
+    template = shard_params(api.init(torch.Generator().manual_seed(7)), rules)
+    named = dict(template.named_parameters())
+    t_opt = opt_state_to_host(opt_state_for(template), opt_state_shardings(
+        rules, {k: Sharding.of(p) for k, p in named.items()}, offload=True))
+    held = _opt_leaves(t_opt)
+    (template, t_opt), _ = mgr.restore(1, template=(template, t_opt))
+    same_objects = all(t is held[k] for k, t in _opt_leaves(t_opt).items())
+    template, t_opt, tm = step(template, t_opt, batch)
+    _save(d, "host_checkpoint", rank, same_objects=np.array(same_objects),
+          loss=np.array(float(tm["loss"])), want_loss=np.array(
+              float(m["loss"])), step=np.array(int(t_opt.step)),
+          types=np.array(sorted({type(t).__name__ for t in
+                                 _opt_leaves(t_opt).values()})),
+          **{"p:" + k: v for k, v in _flat_params(template).items()},
+          **{"w:" + k: v for k, v in _flat_params(model).items()},
+          **{"s:" + k: _np(t) for k, t in _opt_leaves(t_opt).items()},
+          **{"ws:" + k: _np(t) for k, t in _opt_leaves(opt).items()})
+
+
+def check_host_restart(rank, d):
+    """``check_restart`` with the moments in host memory: the restart loop
+    on (2, 2) with a failure at step 3 against the same run without it."""
+    got, losses, model, opt = _resilient_run(d, "host_fail", {3: 1}, True)
+    want, want_losses, plain, want_opt = _resilient_run(d, "host_plain",
+                                                        None, True)
+    _save(d, "host_restart", rank, restarts=got.restarts,
+          final=got.final_step, losses=losses, want_losses=want_losses,
+          types=np.array(sorted({type(t).__name__ for t in
+                                 _opt_leaves(opt).values()})),
+          **{"p:" + k: v for k, v in _flat_params(model).items()},
+          **{"w:" + k: v for k, v in _flat_params(plain).items()},
+          **{"s:" + k: _np(t) for k, t in _opt_leaves(opt).items()},
+          **{"ws:" + k: _np(t) for k, t in _opt_leaves(want_opt).items()})
+
+
+def check_host_one_device(rank, d):
+    """``check_host_state``'s three runs on a (1, 1) mesh over a world of
+    one, the path the card runs."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import offloaded_bytes
+    ref = _host(d)
+    cfg = _tiny_cfg()
+    batch = {k: torch.from_numpy(v) for k, v in ref["batch"].items()}
+    mesh = make_host_mesh()
+    out = {"shape": np.array(tuple(mesh.shape))}
+    for master in (False, True):
+        tag = "master" if master else "plain"
+        got, opts = _host_runs(cfg, ref["params"], batch, mesh, master)
+        out.update({f"{tag}:{k}": v for k, v in got.items()})
+        opt = opts["host"][1]
+        for k, t in _opt_leaves(opt).items():
+            out[f"{tag}:type:{k}"] = np.array(type(t).__name__)
+            out[f"{tag}:local:{k}"] = np.array(tuple(t.local.shape))
+        out[f"{tag}:offloaded"] = np.array(offloaded_bytes(opt))
+    _save(d, "host_one", rank, **out)
+
+
+# ----------------------------------------------------------------------
 # one rank
 # ----------------------------------------------------------------------
 def check_one_device(rank, d):
@@ -683,6 +867,8 @@ GROUPS = {
     "world1": (check_one_device,),
     "decode4": (check_sharded_decode,),
     "gaps4": (check_gaps_ce, check_gaps_moe, check_gaps_engine),
+    "host4": (check_host_state, check_host_checkpoint, check_host_restart),
+    "host1": (check_host_one_device,),
 }
 
 
